@@ -5,39 +5,53 @@
 
 Needs one CUDA device, the CUDA toolkit (nvcc) and the repository around
 this file; without a card it exits nonzero and prints no result.  It
-finishes in well under 5 minutes, the kernel build included, and prints
-one line per phase with the seconds since start:
+finishes in a few minutes, the kernel build included, and prints one line
+per phase with the seconds since start:
 
 1. device: the card's name, count and power limit; TF32 off;
-2. build: nvcc builds the kernels (seconds, registers, shared memory);
+2. build: nvcc builds the kernels, one process per source, all at once
+   (seconds, registers, shared memory);
 3. kernel vs plain: K1 (csrc/align_batched.cu) against its plain PyTorch
    version on bonded replicas at the reference size (150 + 50 molecules),
    B = 64 and 512, positions within 1e-4 A, directions and quaternions
-   within 1e-5, snap and b_laid codes exact;
+   within 1e-5, snap and b_laid codes exact; K2 (csrc/align.cu) against
+   its plain version on bonded single replicas of several seeds, to the
+   bit;
 4. main path: init_ensemble(SimConfig(), 512, seed=0) on the card, then
    the lazy ensemble chunk with k_align = 64: 2 warm-up + 20 timed steps;
-   K1 launches must equal the step count; state finite and bonds mutual;
-5. reference check: on a small dense system, one card step from each of
+   K1 launches must equal the step count, K2 none; state finite and bonds
+   mutual;
+5. single trajectory: the port's CLI in-process at SimConfig(), 100 steps
+   at out_every = 50, then a resume to 150 more; the reference-format
+   files must be there with the right rows and frames, and K2 must launch
+   once per step, K1 never;
+6. ensemble CLI: --replicas 512 --steps 20 at out_every = 10; K1 must
+   launch once per step at B = 512, K2 never;
+7. reference checks: on a small dense system, one card step from each of
    10 states of a trajectory against the plain CPU path from the same
-   state (topology bitwise, poses within 1e-4 A);
-6. K1 timing at B = 64: the kernel's device time (torch.profiler) and a
+   state, for the lazy ensemble step and for the single-trajectory
+   step_fn (topology, flags, keys bitwise; poses within 1e-4 A);
+8. K1 and K2 timing: each kernel's device time (torch.profiler) and a
    wrapper call (CUDA events), beside the plain version and the bound
-   (bytes over 3.35 TB/s);
-7. where the time goes: each stage of the step timed alone by CUDA
+   (bytes over 3.35 TB/s, operations over 67 TFLOP/s);
+9. where the time goes: each stage of the step timed alone by CUDA
    events, and torch.profiler over one main-path step (device busy share,
    top kernels).
 
-The last two lines are one JSON object per kernel measured, the card's
-``nvidia-smi`` name and power limit, and the result line
+The last three lines are one JSON object with one entry per kernel, the
+card's ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``.  Any failed check exits nonzero.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 T0 = time.perf_counter()
@@ -46,6 +60,9 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
 POS_TOL, ANG_TOL = 1e-4, 1e-5
 REPLICAS, K_ALIGN, WARMUP, TIMED = 512, 64, 2, 20
+SINGLE_STEPS, SINGLE_RESUME, SINGLE_OUT_EVERY = 100, 150, 50
+ENS_STEPS, ENS_OUT_EVERY = 20, 10
+K2_SEEDS = (1, 2, 3, 4)
 DEVICE = "cuda"
 CARD = ""          # nvidia-smi's "name, power.limit", set by the device phase
 
@@ -72,33 +89,35 @@ def smi_name_power() -> str:
 
 # ---------------------------------------------------------------------------
 
-def compare_core(got, want):
-    """Max abs error of the float outputs; raises on a miss."""
+def compare_core(got, want, kernel="K1", exact=False):
+    """Max abs error of the float outputs; fails on a miss (on any
+    difference with ``exact``)."""
     names = ("a_xy", "a_dir", "snap", "b_center", "b_quat", "b_laid")
     tols = (POS_TOL, ANG_TOL, None, POS_TOL, ANG_TOL, None)
     worst = 0.0
     for name, g, w, tol in zip(names, got, want, tols):
         if tol is None:
             if not bool((g == w).all()):
-                fail(f"K1 {name} differs from the plain version in "
+                fail(f"{kernel} {name} differs from the plain version in "
                      f"{int((g != w).sum())} entries")
         else:
             err = float((g - w).abs().max())
-            if err > tol:
-                fail(f"K1 {name} max abs error {err} > {tol}")
+            if err > tol or (exact and err != 0.0):
+                fail(f"{kernel} {name} max abs error {err} > "
+                     f"{0.0 if exact else tol}")
             worst = max(worst, err)
     return worst
 
 
-def k1_work(cfg, args, outs):
-    """(bytes, flops) K1 needs for these inputs: every input read once and
-    every output written once; flops counted for the molecules this data
-    snaps (about 70 per receptor seat, 40 per ligand re-seat or lay-down)
-    plus the depth rounds' compare-and-add per neighbour entry."""
+def core_work(cfg, args, outs, b):
+    """(bytes, flops) the align core (K1 or K2) needs for these inputs of
+    ``b`` replicas: every input read once and every output written once;
+    flops counted for the molecules this data snaps (about 70 per receptor
+    seat, 40 per ligand re-seat or lay-down) plus the depth rounds'
+    compare-and-add per neighbour entry."""
     nbytes = sum(x.numel() * x.element_size() for x in (*args, *outs))
     snapped_a = int((outs[2] == 1).sum())
     laid_new = int(((outs[5] & 1) != args[8]).sum())
-    b = args[0].shape[0]
     depth_ops = 2 * cfg.align_depth * b * (2 * cfg.n_a + 3 * cfg.n_b)
     return nbytes, 70 * snapped_a + 40 * laid_new + depth_ops
 
@@ -163,6 +182,174 @@ def mutual(st, cfg) -> bool:
     return bool(ok)
 
 
+def reset_counts(k1, k2) -> None:
+    k1.launches = 0
+    k1.replicas = 0
+    k2.launches = 0
+
+
+def single_cli_phase(cfg, dev, k1, k2):
+    """The port's CLI, single trajectory, at SimConfig(): 100 steps, then a
+    resume to 150 more.  Returns the K2 launches."""
+    from kmc_tpu_torch import cli
+
+    n_atoms = cfg.n_a * 4 + cfg.n_b * 3
+    with tempfile.TemporaryDirectory(prefix="kmc_single_") as out:
+        base = ["--out", out, "--seed", "0", "--device", dev.type,
+                "--set", f"out_every={SINGLE_OUT_EVERY}", "--quiet"]
+        runs = []
+        reset_counts(k1, k2)
+        for steps in (SINGLE_STEPS, SINGLE_RESUME):
+            said = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(said):
+                rc = cli.main(["--steps", str(steps), *base])
+            torch_sync()
+            runs.append((steps, time.perf_counter() - t, said.getvalue()))
+            if rc != 0:
+                fail(f"single-trajectory CLI returned {rc}")
+            if steps == SINGLE_STEPS:
+                rows = read_lines(out, "bond.dat")
+                if len(rows) != 2 or any(len(r.split()) != 7 for r in rows):
+                    fail(f"bond.dat after {steps} steps: {rows}")
+                gro = read_lines(out, "test.gro")
+                frames = [i for i, r in enumerate(gro)
+                          if r.startswith("Hello Gro!")]
+                if (len(frames) != 2 or len(gro) != 2 * (n_atoms + 3)
+                        or int(gro[1]) != n_atoms):
+                    fail(f"test.gro: {len(frames)} frames, {len(gro)} lines "
+                         f"(want 2 frames of {n_atoms} atoms)")
+                for f in ("cluster.log", "hist.dat", "position.cpt",
+                          "checkpoint.npz", "parameter.log"):
+                    if not os.path.isfile(os.path.join(out, f)):
+                        fail(f"single-trajectory CLI wrote no {f}")
+        k1_n, k2_n = k1.launches, k2.launches
+        if "resuming from" not in runs[1][2]:
+            fail(f"second CLI run did not resume: {runs[1][2]!r}")
+        times = [float(r.split()[0]) for r in read_lines(out, "bond.dat")]
+        step_ns = SINGLE_OUT_EVERY * cfg.time_step
+        want = [step_ns * (i + 1) for i in range(
+            (SINGLE_STEPS + SINGLE_RESUME) // SINGLE_OUT_EVERY)]
+        if times != want:
+            fail(f"bond.dat time axis {times}, want {want}")
+        last = read_lines(out, "bond.dat")[-1]
+        from kmc_tpu_torch.io import native
+        fmt = "native kmcio" if native.available() else "Python"
+    steps = SINGLE_STEPS + SINGLE_RESUME
+    for n, sec, _ in runs:
+        log("single trajectory", f"cli.main --steps {n}: {sec:.3f} s = "
+            f"{1e3 * sec / n:.2f} ms/step, {n / sec:.2f} steps/s (I/O every "
+            f"{SINGLE_OUT_EVERY} steps included; first run includes the "
+            "cold start)")
+    log("single trajectory", f"K2 launches {k2_n} for {steps} steps, K1 "
+        f"launches {k1_n}; bond.dat {len(times)} rows, t = {times[0]:.0f}.."
+        f"{times[-1]:.0f} ns without a gap; last row '{last.strip()}'; "
+        f"test.gro by the {fmt} formatter; resumed: "
+        f"{runs[1][2].strip().splitlines()[0]}")
+    if k2_n != steps or k1_n != 0:
+        fail(f"single trajectory: K2 launched {k2_n} times in {steps} steps "
+             f"and K1 {k1_n} times (want {steps} and 0)")
+    return k2_n
+
+
+def ensemble_cli_phase(cfg, dev, k1, k2):
+    """The port's CLI, --replicas 512, 20 steps at out_every = 10."""
+    from kmc_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory(prefix="kmc_ens_") as out:
+        argv = ["--out", out, "--seed", "0", "--device", dev.type,
+                "--replicas", str(REPLICAS), "--steps", str(ENS_STEPS),
+                "--set", f"out_every={ENS_OUT_EVERY}", "--quiet"]
+        reset_counts(k1, k2)
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli.main(argv)
+        torch_sync()
+        sec = time.perf_counter() - t
+        k1_n, k1_reps, k2_n = k1.launches, k1.replicas, k2.launches
+        if rc != 0:
+            fail(f"ensemble CLI returned {rc}")
+        rows = [r for r in read_lines(out, "bond_ens.dat")
+                if not r.startswith("#")]
+        if len(rows) != ENS_STEPS // ENS_OUT_EVERY:
+            fail(f"bond_ens.dat has {len(rows)} rows")
+        if not os.path.isfile(os.path.join(out, "ensemble_checkpoint.npz")):
+            fail("ensemble CLI wrote no ensemble_checkpoint.npz")
+        last = rows[-1].split()
+    log("ensemble CLI", f"--replicas {REPLICAS} --steps {ENS_STEPS}: "
+        f"{sec:.3f} s = {1e3 * sec / ENS_STEPS:.2f} ms/step, "
+        f"{REPLICAS * ENS_STEPS / sec:.1f} replica-steps/s (cold start and "
+        f"I/O every {ENS_OUT_EVERY} steps included); K1 launches {k1_n} "
+        f"aligning {k1_reps} replicas, K2 launches {k2_n}; bond_ens.dat "
+        f"{len(rows)} rows, last t = {last[0]} ns, mean rl {last[1]}")
+    if k1_n != ENS_STEPS or k1_reps != ENS_STEPS * REPLICAS or k2_n != 0:
+        fail(f"ensemble CLI: K1 {k1_n} launches over {k1_reps} replicas, "
+             f"K2 {k2_n} (want {ENS_STEPS} at B = {REPLICAS}, and 0)")
+
+
+def torch_sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def read_lines(out, name):
+    with open(os.path.join(out, name)) as f:
+        return f.read().splitlines()
+
+
+def check_against_cpu(step, ref, dev, what):
+    """One card step from each of 10 trajectory states against the plain
+    CPU path from the same state; returns the worst pose difference."""
+    import torch
+    from kmc_tpu_torch import convert
+
+    worst = 0.0
+    for i in range(10):
+        cpu_in = convert.from_numpy(convert.to_numpy(ref))
+        ref, _ = step(ref, dev)
+        cpu_out, _ = step(cpu_in, "cpu")
+        for f in cpu_out._fields:
+            a, b = getattr(ref, f).cpu(), getattr(cpu_out, f)
+            if f in ("a_xy", "a_psi", "b_center", "b_quat"):
+                err = float((a - b).abs().max())
+                worst = max(worst, err)
+                if err > POS_TOL:
+                    fail(f"{what} reference check step {i}: {f} differs by "
+                         f"{err}")
+            elif not torch.equal(a, b):
+                fail(f"{what} reference check step {i}: {f} differs")
+    return worst
+
+
+def time_kernel(wrapper, plain, args, kernel_symbol, calls=500):
+    """(kernel ms, wrapper-call ms, plain ms, how) for one kernel."""
+    call_ms = cuda_time_ms(lambda: wrapper(*args), iters=calls)
+    plain_ms = cuda_time_ms(lambda: plain(*args), iters=20)
+
+    def loop():
+        for _ in range(200):
+            wrapper(*args)
+
+    rows, _ = profile_kernels(loop)
+    mine = [r for r in rows if kernel_symbol in r[0]]
+    if mine:
+        k_ms = mine[0][1] / 1e3 / mine[0][2]
+        how = f"device time {k_ms * 1e3:.2f} us (profiler, {mine[0][2]} " \
+              "launches)"
+    else:
+        k_ms = call_ms
+        how = "device time not measured (profiler saw no kernel); " \
+              "reporting the call time"
+    return k_ms, call_ms, plain_ms, how
+
+
+def bound(nbytes, flops):
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * flops / FP32_FLOPS
+    return max((t_bytes, "bytes"), (t_ops, "operations"))
+
+
 def main() -> int:
     import torch
 
@@ -173,10 +360,15 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     import kmc_tpu_torch
-    from kmc_tpu_torch import SimConfig, convert
+    from kmc_tpu_torch import SimConfig
+    from kmc_tpu_torch.ops import align as k2_ops
     from kmc_tpu_torch.ops import align_batched, build
-    from kmc_tpu_torch.testing import align_core_inputs, bonded_state
+    from kmc_tpu_torch.testing import (align_core_inputs,
+                                       align_core_single_inputs,
+                                       bonded_state)
 
+    k1 = align_batched.align_core_batched
+    k2 = k2_ops.align_core_single
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -191,32 +383,48 @@ def main() -> int:
     # ---- 2. build ----
     info = build.build()
     build.load()
-    log("build", f"nvcc {info.seconds:.2f} s (reused={info.reused}) -> "
-        f"{os.path.relpath(info.path, REPO)}; "
-        + "; ".join(build.ptxas_summary(info.ptxas)))
+    log("build", f"nvcc {info.seconds:.2f} s for {len(info.paths)} sources "
+        f"in parallel (reused={info.reused}) -> "
+        + ", ".join(os.path.relpath(p, REPO) for p in info.paths.values())
+        + "; " + "; ".join(build.ptxas_summary(info.ptxas)))
     cfg = SimConfig()
-    smem = build.load()[0].kmc_align_batched_smem(cfg.n_a, cfg.n_b)
-    log("build", f"align kernel shared memory per block: {smem} bytes "
-        "(dynamic)")
+    smem = build.library("align_batched").kmc_align_batched_smem(cfg.n_a,
+                                                                 cfg.n_b)
+    smem2 = build.library("align").kmc_align_smem(cfg.n_a, cfg.n_b)
+    log("build", f"align kernels' shared memory per block: K1 {smem}, K2 "
+        f"{smem2} bytes (dynamic)")
 
-    # ---- 3. K1 against its plain version at the reference size ----
+    # ---- 3. K1 and K2 against their plain versions at the reference size
     max_err = 0.0
     k1_inputs = None
     for batch in (K_ALIGN, REPLICAS):
         st = bonded_state(cfg, batch, seed=batch, device=dev)
         args = align_core_inputs(st, cfg)
-        got = align_batched.align_core_batched(*args, cfg)
+        got = k1(*args, cfg)
         torch.cuda.synchronize()
         want = align_batched.align_core_batched_plain(*args, cfg)
         err = compare_core(got, want)
         max_err = max(max_err, err)
         snapped = int((got[2] == 1).sum())
         unreached = int((got[2] == 2).sum()) + int((got[5] >= 2).sum())
-        log("kernel vs plain", f"B={batch}: max abs err {err:.3g} "
+        log("kernel vs plain", f"K1 B={batch}: max abs err {err:.3g} "
             f"(tol {POS_TOL} A / {ANG_TOL}); receptors snapped {snapped}, "
             f"unreached markers {unreached}; snap/b_laid exact")
         if batch == K_ALIGN:
             k1_inputs = (args, got)
+    k2_err, k2_inputs = 0.0, None
+    for seed in K2_SEEDS:
+        args = align_core_single_inputs(
+            bonded_state(cfg, 1, seed=seed, device=dev), cfg)
+        got = k2(*args, cfg)
+        torch.cuda.synchronize()
+        want = k2_ops.align_core_single_plain(*args, cfg)
+        k2_err = max(k2_err, compare_core(got, want, "K2", exact=True))
+        log("kernel vs plain", f"K2 seed {seed}: bitwise equal; receptors "
+            f"snapped {int((got[2] == 1).sum())}, unreached markers "
+            f"{int((got[2] == 2).sum()) + int((got[5] >= 2).sum())}")
+        if k2_inputs is None:
+            k2_inputs = (args, got)
 
     # ---- 4. the main path ----
     t = time.perf_counter()
@@ -228,7 +436,7 @@ def main() -> int:
                                                   k_align=K_ALIGN, device=dev)
     timed = kmc_tpu_torch.make_lazy_ensemble_chunk(cfg, TIMED,
                                                    k_align=K_ALIGN, device=dev)
-    align_batched.align_core_batched.launches = 0
+    reset_counts(k1, k2)
     t = time.perf_counter()
     state, _ = warm(state)
     torch.cuda.synchronize()
@@ -237,7 +445,7 @@ def main() -> int:
     state, obs = timed(state)
     torch.cuda.synchronize()
     t_timed = time.perf_counter() - t
-    launches = align_batched.align_core_batched.launches
+    launches, k2_lazy = k1.launches, k2.launches
     steps = WARMUP + TIMED
     rs_per_s = REPLICAS * TIMED / t_timed
     events = cfg.n + cfg.n_a * cfg.n_b * 3 + 2 * cfg.n_a * (cfg.n_a - 1)
@@ -250,74 +458,68 @@ def main() -> int:
         f"ms/step; {rs_per_s:.1f} replica-steps/s; "
         f"{rs_per_s * events:.4g} event-attempts/s ({events} per "
         f"replica-step)")
-    log("main path", f"K1 launches {launches} for {steps} steps; dirty "
+    log("main path", f"K1 launches {launches} for {steps} steps, K2 "
+        f"launches {k2_lazy}; dirty "
         f"replicas {int(state.dirty.sum())}/{REPLICAS}; mean bonds "
         f"rl {obs.bond_rl.float().mean():.3f} cis "
         f"{obs.bond_cis.float().mean():.3f} mono_cis "
         f"{obs.bond_mono_cis.float().mean():.3f}; finite={finite}; "
         f"mutual={ok_mutual}; step={int(state.step[0])}")
-    if launches != steps:
-        fail(f"K1 launched {launches} times in {steps} main-path steps")
+    if launches != steps or k2_lazy != 0:
+        fail(f"K1 launched {launches} times and K2 {k2_lazy} times in "
+             f"{steps} main-path steps")
     if not finite or not ok_mutual:
         fail("main-path state not finite or bonds not mutual")
     if not bool((state.step == steps + 1).all()):
         fail("step counter did not advance")
 
-    # ---- 5. small-input reference: card step vs the plain CPU path ----
+    # ---- 5. single trajectory through the CLI ----
+    k2_launches = single_cli_phase(cfg, dev, k1, k2)
+
+    # ---- 6. ensemble through the CLI ----
+    ensemble_cli_phase(cfg, dev, k1, k2)
+
+    # ---- 7. small-input references: card steps vs the plain CPU path ----
     small = SimConfig(n_a=24, n_b=8, cell_range_x=700.0, cell_range_y=700.0,
                       cell_range_z=200.0)
-    ref = bonded_state(small, 8, seed=5, device=dev)
-    worst, agree = 0.0, 0
-    for i in range(10):
-        cpu_in = convert.from_numpy(convert.to_numpy(ref))
-        ref, _ = kmc_tpu_torch.lazy_ensemble_step(ref, small, 2, device=dev)
-        cpu_out, _ = kmc_tpu_torch.lazy_ensemble_step(cpu_in, small, 2,
-                                                      device="cpu")
-        for f in cpu_out._fields:
-            a, b = getattr(ref, f).cpu(), getattr(cpu_out, f)
-            if f in ("a_xy", "a_psi", "b_center", "b_quat"):
-                err = float((a - b).abs().max())
-                worst = max(worst, err)
-                if err > POS_TOL:
-                    fail(f"reference check step {i}: {f} differs by {err}")
-            elif not torch.equal(a, b):
-                fail(f"reference check step {i}: {f} differs")
-        agree += 1
-    log("reference check", f"{agree} card steps equal the CPU plain path "
-        f"(24+8 molecules, 8 replicas): topology/flags/keys bitwise, poses "
-        f"max abs diff {worst:.3g} A")
+    worst = check_against_cpu(
+        lambda s, d: kmc_tpu_torch.lazy_ensemble_step(s, small, 2, device=d),
+        bonded_state(small, 8, seed=5, device=dev), dev, "lazy")
+    log("reference check", f"10 lazy-ensemble card steps equal the CPU "
+        f"plain path (24+8 molecules, 8 replicas): topology/flags/keys "
+        f"bitwise, poses max abs diff {worst:.3g} A")
+    worst = check_against_cpu(
+        lambda s, d: kmc_tpu_torch.step_fn(s, small, device=d),
+        bonded_state(small, 1, seed=5, device=dev), dev, "single")
+    log("reference check", f"10 single-trajectory card steps (K2) equal "
+        f"the CPU plain path (24+8 molecules): topology/flags/keys bitwise, "
+        f"poses max abs diff {worst:.3g} A")
 
-    # ---- 6. K1 timing ----
+    # ---- 8. K1 and K2 timing ----
     args, outs = k1_inputs
-    call_ms = cuda_time_ms(
-        lambda: align_batched.align_core_batched(*args, cfg), iters=500)
-    plain_ms = cuda_time_ms(
-        lambda: align_batched.align_core_batched_plain(*args, cfg), iters=20)
-
-    def k1_loop():
-        for _ in range(200):
-            align_batched.align_core_batched(*args, cfg)
-
-    rows, _ = profile_kernels(k1_loop)
-    k1_rows = [r for r in rows if "align_batched_kernel" in r[0]]
-    if k1_rows:
-        k1_ms = k1_rows[0][1] / 1e3 / k1_rows[0][2]
-        how = f"device time {k1_ms * 1e3:.2f} us (profiler, " \
-              f"{k1_rows[0][2]} launches)"
-    else:
-        k1_ms = call_ms
-        how = "device time not measured (profiler saw no kernel); " \
-              "reporting the call time"
-    nbytes, flops = k1_work(cfg, args, outs)
-    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * flops / FP32_FLOPS
-    bound_ms, bound_by = max((t_bytes, "bytes"), (t_ops, "operations"))
+    k1_ms, call_ms, plain_ms, how = time_kernel(
+        lambda *a: k1(*a, cfg),
+        lambda *a: align_batched.align_core_batched_plain(*a, cfg), args,
+        "align_batched_kernel")
+    nbytes, flops = core_work(cfg, args, outs, args[0].shape[0])
+    bound_ms, bound_by = bound(nbytes, flops)
     log("K1 timing", f"B={K_ALIGN}: kernel {how}; wrapper call "
         f"{call_ms * 1e3:.2f} us (CUDA events, 500 calls); plain "
         f"{plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.3f} us by "
         f"{bound_by} ({nbytes} bytes, {flops} flops)")
+    args2, outs2 = k2_inputs
+    k2_ms, call2_ms, plain2_ms, how2 = time_kernel(
+        lambda *a: k2(*a, cfg),
+        lambda *a: k2_ops.align_core_single_plain(*a, cfg), args2,
+        "align_single_kernel")
+    nbytes2, flops2 = core_work(cfg, args2, outs2, 1)
+    bound2_ms, bound2_by = bound(nbytes2, flops2)
+    log("K2 timing", f"one replica: kernel {how2}; wrapper call "
+        f"{call2_ms * 1e3:.2f} us (CUDA events, 500 calls); plain "
+        f"{plain2_ms * 1e3:.1f} us; bound {bound2_ms * 1e3:.4f} us by "
+        f"{bound2_by} ({nbytes2} bytes, {flops2} flops)")
 
-    # ---- 7. where the time goes ----
+    # ---- 9. where the time goes ----
     from kmc_tpu_torch import rng
     from kmc_tpu_torch.engine.align import idealize_fused
     from kmc_tpu_torch.engine.clusters import cluster_labels, take_info
@@ -362,6 +564,19 @@ def main() -> int:
         log("profile", "device time not measured (the profiler recorded "
             "no CUDA kernel)")
 
+    single = kmc_tpu_torch.make_step_fn(cfg, device=dev)
+    st1 = kmc_tpu_torch.init_state(cfg, 0, device=dev)
+    st1, _ = single(st1)
+    holder = [st1]
+    rows, wall = profile_kernels(lambda: holder.append(single(holder[-1])[0]))
+    dev_ms = sum(r[1] for r in rows) / 1e3
+    if dev_ms > 0:
+        top = "; ".join(f"{k[:40]} {us / 1e3:.3f} ms x{n}"
+                        for k, us, n in rows[:4])
+        log("profile", f"1 single-trajectory step under the profiler: wall "
+            f"{wall * 1e3:.1f} ms, kernels {dev_ms:.2f} ms in "
+            f"{sum(r[2] for r in rows)} launches; top: {top}")
+
     print(json.dumps({"kernels": [{
         "name": "align_batched",
         "route": "cuda",
@@ -373,6 +588,18 @@ def main() -> int:
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "library_ms": None,
+    }, {
+        "name": "align",
+        "route": "cuda",
+        "source": "kmc_tpu_torch/csrc/align.cu",
+        "replaces": "kmc_tpu/ops/pallas_align.py:78",
+        "launches": k2_launches,
+        "max_abs_err": k2_err,
+        "ms": k2_ms,
+        "plain_ms": plain2_ms,
+        "bound_ms": bound2_ms,
+        "bound_by": bound2_by,
         "library_ms": None,
     }]}), flush=True)
     print(card, flush=True)

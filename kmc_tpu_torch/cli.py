@@ -1,0 +1,192 @@
+"""Command-line driver of the port (port of ``kmc_tpu/cli.py``).
+
+Configuration from JSON plus ``--set key=value`` overrides, an output
+directory, and resume: from ``checkpoint.npz`` (native, bitwise) or
+``position.cpt`` (the reference's text format, as the reference's startup
+probe reads it, main.cpp:226-270) in the output directory, or for an
+ensemble from ``ensemble_checkpoint.npz``.  The run is on the card unless
+``--device cpu`` is given; without a card it raises.
+
+Example::
+
+    python -m kmc_tpu_torch.cli --steps 100000 --out runs/ref --seed 1
+    python -m kmc_tpu_torch.cli --steps 2000 --replicas 512 --out runs/ens
+
+Not ported yet: the lattice engine (``--engine lattice``,
+``--lattice-pallas``, ``--lattice-rf``; ROADMAP Queue 1 items 11-12),
+which exits with an error, and sharding an ensemble over several cards
+(item 13): an ensemble runs on one card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+from kmc_tpu_torch.config import SimConfig
+
+
+def parse_overrides(pairs):
+    out = {}
+    for p in pairs or []:
+        k, v = p.split("=", 1)
+        out[k] = v
+    return out
+
+
+def coerce(cfg_dict, overrides):
+    for k, v in overrides.items():
+        if k not in cfg_dict:
+            raise SystemExit(f"unknown config key: {k}")
+        cur = cfg_dict[k]
+        try:
+            if isinstance(cur, bool):
+                cfg_dict[k] = v.lower() in ("1", "true", "yes")
+            elif isinstance(cur, int):
+                cfg_dict[k] = int(v)
+            elif isinstance(cur, float):
+                cfg_dict[k] = float(v)
+            else:
+                cfg_dict[k] = v
+        except ValueError:
+            raise SystemExit(f"invalid value for {k}: {v!r} (expected "
+                             f"{type(cur).__name__})")
+    return cfg_dict
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="kmc_tpu_torch", description=__doc__)
+    ap.add_argument("--config", help="JSON config file", default=None)
+    ap.add_argument("--set", dest="sets", action="append",
+                    help="override: key=value", default=[])
+    ap.add_argument("--steps", type=int, default=None,
+                    help="number of MC steps (default: cfg.simu_step)")
+    ap.add_argument("--out", default="out", help="output directory")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="trajectory-ensemble size (>1 also writes "
+                         "bond_ens.dat with mean/std kinetics)")
+    ap.add_argument("--engine", choices=["particle", "lattice"],
+                    default="particle",
+                    help="particle: the reference-parity rigid-body engine; "
+                         "lattice: not ported yet")
+    ap.add_argument("--lattice-pallas", action="store_true",
+                    help="lattice engine kernel (not ported yet)")
+    ap.add_argument("--lattice-rf", action="store_true",
+                    help="lattice engine rejection-free mode (not ported "
+                         "yet)")
+    ap.add_argument("--out-every", type=int, default=None,
+                    help="lattice engine output cadence (not ported yet)")
+    ap.add_argument("--resume", default="auto",
+                    choices=["auto", "native", "reference", "none"])
+    ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="run on the card (default) or on the CPU")
+    ap.add_argument("--quiet", action="store_true")
+    args = ap.parse_args(argv)
+
+    if args.engine == "lattice" or args.lattice_pallas or args.lattice_rf:
+        raise SystemExit("the lattice engine (--engine lattice, "
+                         "--lattice-pallas, --lattice-rf) is not ported to "
+                         "kmc_tpu_torch yet; use kmc_tpu.cli")
+
+    cfg = SimConfig.from_json(args.config) if args.config else SimConfig()
+    cfg = SimConfig.from_dict(coerce(cfg.to_dict(),
+                                     parse_overrides(args.sets)))
+    from kmc_tpu_torch.state import resolve_device
+
+    device = resolve_device(args.device)
+
+    if args.replicas > 1:
+        return run_ensemble(cfg, args, device)
+
+    from kmc_tpu_torch.engine.step import run
+    from kmc_tpu_torch.io.checkpoint import (load_native, load_reference_cpt,
+                                             save_native)
+    from kmc_tpu_torch.io.writers import OutputSet
+    from kmc_tpu_torch.state import init_state
+
+    native = os.path.join(args.out, "checkpoint.npz")
+    ref_cpt = os.path.join(args.out, "position.cpt")
+    state = None
+    if args.resume in ("auto", "native") and os.path.exists(native):
+        state = load_native(native, device)
+        print(f"resuming from {native} at step {int(state.step[0])}")
+    elif args.resume in ("auto", "reference") and os.path.exists(ref_cpt):
+        state = load_reference_cpt(ref_cpt, cfg, args.seed, device)
+        print(f"resuming from {ref_cpt} at step {int(state.step[0])}")
+    fresh = state is None
+    if fresh:
+        state = init_state(cfg, args.seed, device)
+
+    outputs = OutputSet(args.out, cfg, fresh=fresh)
+    n_steps = args.steps if args.steps is not None else cfg.simu_step
+    t0 = time.perf_counter()
+    done = [0]
+
+    def on_output(st, obs):
+        outputs(st, obs)
+        save_native(native, st)
+        done[0] += cfg.out_every
+        if not args.quiet:
+            rate = done[0] / max(time.perf_counter() - t0, 1e-9)
+            print(f"step {int(st.step[0]) - 1}  t={float(obs.time_ns[0]):.0f}"
+                  f"ns  bonds={int(obs.bond_num[0])}  rate={rate:,.0f} "
+                  "steps/s", file=sys.stderr)
+
+    try:
+        state = run(state, cfg, n_steps=n_steps, on_output=on_output,
+                    device=device)
+    finally:
+        outputs.close()
+    if not args.quiet:
+        print(f"done at step {int(state.step[0]) - 1}")
+    return 0
+
+
+def run_ensemble(cfg: SimConfig, args, device) -> int:
+    """Replica-ensemble run on one card: the eager ensemble chunk (K1 on all
+    replicas every step), merged kinetics with error bars to bond_ens.dat
+    and replica 0's reference-format files."""
+    from kmc_tpu_torch.io.checkpoint import load_native, save_native
+    from kmc_tpu_torch.io.writers import EnsembleOutputSet
+    from kmc_tpu_torch.parallel.ensemble import (init_ensemble,
+                                                 make_ensemble_chunk)
+
+    native = os.path.join(args.out, "ensemble_checkpoint.npz")
+    state = None
+    if args.resume in ("auto", "native") and os.path.exists(native):
+        state = load_native(native, device)
+        print(f"resuming ensemble from {native} at step "
+              f"{int(state.step[0])}")
+    fresh = state is None
+    if fresh:
+        state = init_ensemble(cfg, args.replicas, seed=args.seed,
+                              device=device)
+
+    outputs = EnsembleOutputSet(args.out, cfg, fresh=fresh)
+    chunk = make_ensemble_chunk(cfg, cfg.out_every, device)
+    n_steps = args.steps if args.steps is not None else cfg.simu_step
+    t0 = time.perf_counter()
+    done = 0
+    try:
+        while done < n_steps:
+            state, obs = chunk(state)
+            done += cfg.out_every
+            outputs(state, obs)
+            save_native(native, state, batched=True)
+            if not args.quiet:
+                rate = done * args.replicas / max(time.perf_counter() - t0,
+                                                  1e-9)
+                print(f"step {int(state.step[0]) - 1} x{args.replicas}  "
+                      f"rate={rate:,.0f} replica-steps/s", file=sys.stderr)
+    finally:
+        outputs.close()
+    if not args.quiet:
+        print(f"done at step {int(state.step[0]) - 1}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

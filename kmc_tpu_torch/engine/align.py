@@ -8,10 +8,10 @@ depth and parent by bounded min-propagation, sweep depths
 A<-A cis seat, B<-A re-seat with lay-down), then revert wholesale every
 changed cluster that now overlaps another (main.cpp:1138-1860).
 
-``idealize_fused`` runs the depth + sweep core as one kernel
-(ops/align_batched.py, K1 on the card); ``idealize`` is the unfused tensor
-form.  They agree within 1e-4 A / 1e-5 rad.  All tensors carry a leading
-replica axis R.
+``idealize_fused`` runs the depth + sweep core as one kernel (K1,
+ops/align_batched.py, for a batch of replicas; K2, ops/align.py, for the
+single trajectory); ``idealize`` is the unfused tensor form.  They agree
+within 1e-4 A / 1e-5 rad.  All tensors carry a leading replica axis R.
 """
 
 from __future__ import annotations
@@ -106,11 +106,19 @@ def _collision_revert(state: SimState, prop: SimState, info: ClusterInfo,
 
 
 def idealize_fused(state: SimState, info: ClusterInfo, skey,
-                   cfg: SimConfig) -> SimState:
-    """idealize with the depth + sweep core as one fused kernel
-    (ops/align_batched.py); root choice and the collision revert stay in
-    tensor code."""
-    from kmc_tpu_torch.ops.align_batched import align_core
+                   cfg: SimConfig, batched: bool = True) -> SimState:
+    """idealize with the depth + sweep core as one fused kernel; root choice
+    and the collision revert stay in tensor code.
+
+    ``batched`` picks the kernel as the JAX package does: a batched call
+    (every ensemble path) runs K1 (ops/align_batched.py) on all replicas,
+    an unbatched call (the single trajectory, engine/step.step_fn) runs K2
+    (ops/align.py) on its one replica.  A 1-replica ensemble is still
+    batched.  On CPU tensors each runs its kernel's plain version."""
+    if batched:
+        from kmc_tpu_torch.ops.align_batched import align_core
+    else:
+        from kmc_tpu_torch.ops.align import align_core
 
     is_root = _choose_roots(state, info, skey, cfg)
     a_xy, a_psi, b_center, b_quat, b_laid, unreached = align_core(

@@ -43,6 +43,11 @@ def _sq_dist(x, y):
     return (diff * diff).sum(-1)
 
 
+def random_init(cfg: SimConfig, seed: int = 0, device=None) -> SimState:
+    """Cold start of one replica from the base key of ``seed``."""
+    return random_init_from_key(cfg, rng.base_key(seed, device)[None])
+
+
 def random_init_from_key(cfg: SimConfig, base: torch.Tensor) -> SimState:
     """Cold start of every replica from its base key (i64[R, 2])."""
     dev = base.device

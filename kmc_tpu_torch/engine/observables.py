@@ -53,6 +53,49 @@ def cluster_stats(info: ClusterInfo, cfg: SimConfig):
     return cluster_size.to(torch.float32), max_b
 
 
+MAX_HIST_SIZE = 16
+
+
+def _bincount_rows(idx, length: int):
+    """Per-replica bincount: i32[R, length] counts of idx [R, m], whose
+    values lie in 0..length-1."""
+    out = torch.zeros((idx.shape[0], length), dtype=torch.int32,
+                      device=idx.device)
+    return out.scatter_add_(1, idx.long(), torch.ones_like(idx,
+                                                           dtype=torch.int32))
+
+
+def cluster_histogram(info: ClusterInfo, cfg: SimConfig):
+    """Histogram of ligand-seeded cluster sizes, i32[R, MAX_HIST_SIZE + 1]:
+    slot s = number of clusters of size s (s >= MAX_HIST_SIZE binned into
+    the last slot; slot 0 unused)."""
+    seeded = info.is_root & (info.n_b > 0)
+    sizes = torch.where(seeded, torch.clamp(info.size, 0, MAX_HIST_SIZE), 0)
+    hist = _bincount_rows(sizes, MAX_HIST_SIZE + 1)
+    hist[:, 0] = 0
+    return hist
+
+
+def seeded_receptor_histogram(info: ClusterInfo, cfg: SimConfig):
+    """Histogram over the number of receptors in each ligand-seeded cluster,
+    i32[R, MAX_HIST_SIZE + 1]: slot r = clusters with r receptor members
+    (r >= MAX_HIST_SIZE in the last slot; slot 0 = pure-ligand clusters),
+    the statistic of the reference's cluster.log (main.cpp:2291-2305)."""
+    seeded = info.is_root & (info.n_b > 0)
+    idx = torch.where(seeded, torch.clamp(info.n_a, 0, MAX_HIST_SIZE) + 1, 0)
+    return _bincount_rows(idx, MAX_HIST_SIZE + 2)[:, 1:]
+
+
+def receptor_oligomer_histogram(info: ClusterInfo, cfg: SimConfig):
+    """Histogram over the number of receptors per cluster (any cluster with
+    a receptor, free receptors as size 1), i32[R, MAX_HIST_SIZE + 1]."""
+    rooted = info.is_root & (info.n_a > 0)
+    sizes = torch.where(rooted, torch.clamp(info.n_a, 0, MAX_HIST_SIZE), 0)
+    hist = _bincount_rows(sizes, MAX_HIST_SIZE + 1)
+    hist[:, 0] = 0
+    return hist
+
+
 def observe(state: SimState, info: ClusterInfo, cfg: SimConfig) -> Observables:
     """Counters from the committed topology, cluster stats from the step's
     start-of-step labels (the reference's bond.dat semantics)."""

@@ -49,8 +49,10 @@ def _f32(x) -> float:
     return float(np.float32(x))
 
 
-def _constants(cfg: SimConfig) -> dict:
-    tmpl = ligand_template_np(cfg)
+def _constants(cfg: SimConfig, tmpl=None) -> dict:
+    """Scalars of ``cfg`` and the template vectors the core reads, from
+    ``tmpl`` (f32[4, 4, 3], as K2 takes it) or the configuration's."""
+    tmpl = ligand_template_np(cfg) if tmpl is None else np.asarray(tmpl)
     return dict(
         ra=_f32(cfg.rb_a_radius),
         t_off0=_f32(trans_offsets(cfg)[0]),
@@ -93,10 +95,11 @@ def _pick3(idx, table, k):
 
 def align_core_batched_plain(a_xy, a_dir, b_center, b_quat, a_trans, a_site,
                              a_cis, b_partner, b_laid, is_root, act,
-                             cfg: SimConfig):
-    """K1 in plain tensor ops: the reference the kernel is held against."""
+                             cfg: SimConfig, tmpl=None):
+    """K1 in plain tensor ops: the reference the kernel is held against.
+    ``tmpl`` (f32[4, 4, 3]) replaces the configuration's ligand template."""
     na, nb = cfg.n_a, cfg.n_b
-    k = _constants(cfg)
+    k = _constants(cfg, tmpl)
     ra = k["ra"]
 
     def g(x, idx):
@@ -278,7 +281,8 @@ def _check_inputs(args, cfg: SimConfig):
 def align_core_batched(a_xy, a_dir, b_center, b_quat, a_trans, a_site, a_cis,
                        b_partner, b_laid, is_root, act, cfg: SimConfig):
     """K1: the plain version for CPU tensors, the CUDA kernel for CUDA
-    tensors.  Each kernel launch adds one to ``align_core_batched.launches``."""
+    tensors.  Each kernel launch adds one to ``align_core_batched.launches``
+    and its batch size to ``align_core_batched.replicas``."""
     args = (a_xy, a_dir, b_center, b_quat, a_trans, a_site, a_cis, b_partner,
             b_laid, is_root, act)
     if a_xy.device.type == "cpu":
@@ -288,8 +292,7 @@ def align_core_batched(a_xy, a_dir, b_center, b_quat, a_trans, a_site, a_cis,
     _check_inputs(args, cfg)
     from kmc_tpu_torch.ops import build
 
-    lib, _ = build.load()
-    fn = _bind(lib)
+    fn = _bind(build.library("align_batched"))
     batch, na, nb = a_xy.shape[0], cfg.n_a, cfg.n_b
     outs = (torch.empty_like(a_xy), torch.empty_like(a_dir),
             torch.empty((batch, na), dtype=torch.int32, device=a_xy.device),
@@ -304,10 +307,12 @@ def align_core_batched(a_xy, a_dir, b_center, b_quat, a_trans, a_site, a_cis,
     if err != 0:
         raise RuntimeError(f"align kernel launch failed: CUDA error {err}")
     align_core_batched.launches += 1
+    align_core_batched.replicas += batch
     return outs
 
 
-align_core_batched.launches = 0
+align_core_batched.launches = 0     # kernel launches
+align_core_batched.replicas = 0     # replicas those launches aligned
 
 
 def align_core(state, is_root, act, cfg: SimConfig):

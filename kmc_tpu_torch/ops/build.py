@@ -1,12 +1,13 @@
-"""Build and load the port's CUDA kernels: nvcc into one shared library
-with a plain C interface, bound with ctypes.
+"""Build and load the port's CUDA kernels: one shared library per kernel
+source, each with a plain C interface, bound with ctypes.
 
-The library is compiled at first use from the sources under
-``kmc_tpu_torch/csrc/`` into ``kmc_tpu_torch/_build/<hash>/``, where the
-hash covers the sources and the flags, so an edit rebuilds.  The build
-includes no PyTorch header (which would cost minutes per build); it takes
-seconds.  ``nvcc`` comes from ``$CUDA_HOME/bin``, ``/usr/local/cuda/bin``
-or the ``PATH``.
+Every ``csrc/<name>.cu`` is compiled at first use into
+``kmc_tpu_torch/_build/<hash>/libkmc_<name>.so``, where the hash covers all
+sources (headers included) and the flags, so an edit rebuilds.  One
+``nvcc`` runs per source, all started together, so the build takes as long
+as its slowest source.  No source includes a PyTorch header (which would
+cost minutes per build); a build takes seconds.  ``nvcc`` comes from
+``$CUDA_HOME/bin``, ``/usr/local/cuda/bin`` or the ``PATH``.
 """
 
 from __future__ import annotations
@@ -31,24 +32,28 @@ BUILD_ROOT = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-LIB_NAME = "libkmc_kernels.so"
 
 
 @dataclasses.dataclass(frozen=True)
 class BuildInfo:
-    path: str           # the shared library
-    seconds: float      # wall time of the nvcc run (0.0 when reused)
+    paths: dict         # kernel source name -> its shared library
+    seconds: float      # wall time of the parallel nvcc runs (0.0 if reused)
     reused: bool        # an identical build was already on disk
-    ptxas: str          # nvcc's -Xptxas -v report (registers, shared memory)
+    ptxas: str          # nvcc's -Xptxas -v reports (registers, shared memory)
 
 
 _lock = threading.Lock()
-_loaded: tuple[ctypes.CDLL, BuildInfo] | None = None
+_loaded: tuple[dict, BuildInfo] | None = None
 
 
 def _sources():
     return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
                   if f.endswith((".cu", ".cuh")))
+
+
+def kernel_names() -> list[str]:
+    """The kernel sources, ``csrc/<name>.cu``, by name."""
+    return [os.path.basename(p)[:-3] for p in _sources() if p.endswith(".cu")]
 
 
 def _find_nvcc() -> str:
@@ -73,28 +78,41 @@ def source_hash() -> str:
 
 
 def build() -> BuildInfo:
-    """Compile the library unless this exact build is already on disk."""
+    """Compile every kernel library unless this exact build is on disk."""
     out_dir = os.path.join(BUILD_ROOT, source_hash())
-    lib = os.path.join(out_dir, LIB_NAME)
+    names = kernel_names()
+    paths = {n: os.path.join(out_dir, f"libkmc_{n}.so") for n in names}
     log_path = os.path.join(out_dir, "ptxas.log")
-    if os.path.isfile(lib) and os.path.isfile(log_path):
+    if all(map(os.path.isfile, [*paths.values(), log_path])):
         with open(log_path) as f:
-            return BuildInfo(lib, 0.0, True, f.read())
+            return BuildInfo(paths, 0.0, True, f.read())
     os.makedirs(out_dir, exist_ok=True)
-    units = [p for p in _sources() if p.endswith(".cu")]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
+    nvcc = _find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run([_find_nvcc(), *NVCC_FLAGS, "-o", tmp, *units],
-                          capture_output=True, text=True, check=False)
+    jobs = {}
+    for name in names:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        proc = subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")],
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        jobs[name] = (proc, tmp)
+    reports, failed = [], []
+    for name, (proc, tmp) in jobs.items():
+        _, err = proc.communicate()
+        reports.append(err)
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu ({proc.returncode}):\n{err}")
+            os.unlink(tmp)
+        else:
+            os.replace(tmp, paths[name])   # atomic: all of a library or none
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)          # atomic: a concurrent build sees all or none
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    report = "".join(reports)
     with open(log_path, "w") as f:
-        f.write(proc.stderr)
-    return BuildInfo(lib, seconds, False, proc.stderr)
+        f.write(report)
+    return BuildInfo(paths, seconds, False, report)
 
 
 def ptxas_summary(report: str) -> list[str]:
@@ -110,11 +128,18 @@ def ptxas_summary(report: str) -> list[str]:
     return lines
 
 
-def load() -> tuple[ctypes.CDLL, BuildInfo]:
-    """The loaded kernel library (built on first call) and its build info."""
+def load() -> tuple[dict, BuildInfo]:
+    """The loaded kernel libraries by source name (built on first call)
+    and the build's info."""
     global _loaded
     with _lock:
         if _loaded is None:
             info = build()
-            _loaded = (ctypes.CDLL(info.path), info)
+            _loaded = ({n: ctypes.CDLL(p) for n, p in info.paths.items()},
+                       info)
         return _loaded
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``."""
+    return load()[0][name]

@@ -1,12 +1,13 @@
-"""Replica ensembles and the lazy (event-driven) ensemble step (port of
-``kmc_tpu/parallel/ensemble.py``).
+"""Replica ensembles: the eager ensemble step and the lazy (event-driven)
+ensemble step (port of ``kmc_tpu/parallel/ensemble.py``).
 
 Every stage runs on all replicas at once through the explicit leading
-replica axis.  The lazy step runs the idealize stage only on the
-``k_align`` dirtiest replicas: idealize is a geometric no-op on a clean
-replica, and a replica is dirty only in the step after a topology change
-or an align revert.  Overflow replicas (more than k dirty) are aligned on
-later steps, rotation-prioritised so none starves.
+replica axis.  The eager step is ``engine/step.step_fn`` on all replicas,
+with the idealize core as K1 at B = R.  The lazy step runs the idealize
+stage only on the ``k_align`` dirtiest replicas: idealize is a geometric
+no-op on a clean replica, and a replica is dirty only in the step after a
+topology change or an align revert.  Overflow replicas (more than k
+dirty) are aligned on later steps, rotation-prioritised so none starves.
 
 The entry points run on the card unless the caller passes
 ``device="cpu"``; without a card they raise rather than run on the CPU.
@@ -24,31 +25,15 @@ from kmc_tpu_torch.engine.align import idealize, idealize_fused
 from kmc_tpu_torch.engine.clusters import cluster_labels, take_info
 from kmc_tpu_torch.engine.diffusion import diffuse
 from kmc_tpu_torch.engine.init import random_init_from_key
-from kmc_tpu_torch.engine.observables import (Observables, cluster_stats,
-                                              observe)
+from kmc_tpu_torch.engine.observables import (Observables, cluster_histogram,
+                                              cluster_stats, observe,
+                                              seeded_receptor_histogram)
 from kmc_tpu_torch.engine.reactions import react
-from kmc_tpu_torch.state import SimState, take_replicas
+from kmc_tpu_torch.engine.step import step_fn
+from kmc_tpu_torch.state import (SimState, check_state_device,
+                                  resolve_device, take_replicas)
 
 _ALIGNED_FIELDS = ("a_xy", "a_psi", "b_center", "b_quat", "b_laid", "dirty")
-
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as a torch.device, "cuda" by default; raises when CUDA is
-    asked for (or defaulted to) and no card is present."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("kmc_tpu_torch runs on a CUDA device by default "
-                           "and none is available; pass device='cpu' to run "
-                           "on the CPU")
-    return dev
-
-
-def _check_state_device(state: SimState, device) -> None:
-    dev = resolve_device(device)
-    have = state.a_xy.device
-    if have.type != dev.type or (dev.index is not None and have != dev):
-        raise ValueError(f"state lives on {have}, the step was asked to run "
-                         f"on {dev}")
 
 
 def init_ensemble(cfg: SimConfig, n_replicas: int, seed: int = 0,
@@ -61,6 +46,73 @@ def init_ensemble(cfg: SimConfig, n_replicas: int, seed: int = 0,
     return random_init_from_key(cfg, keys)
 
 
+def broadcast_ensemble(state: SimState, n_replicas: int,
+                       seed: int = 0) -> SimState:
+    """A single-trajectory state -> an ensemble of ``n_replicas`` copies of
+    that configuration with independent Threefry streams, replica r keyed
+    fold_in(key(seed), r): the anchor-continuation start (a reference
+    checkpoint continued as an ensemble)."""
+    if state.step.shape[0] != 1:
+        raise ValueError("broadcast_ensemble takes a single trajectory, got "
+                         f"{state.step.shape[0]} replicas")
+    dev = state.step.device
+    keys = rng.replica_key(rng.base_key(seed, dev),
+                           torch.arange(n_replicas, device=dev))
+    bat = SimState(*(x.expand(n_replicas, *x.shape[1:]).clone()
+                     for x in state))
+    return bat._replace(key=keys)
+
+
+def make_ensemble_step(cfg: SimConfig, device=None
+                       ) -> Callable[[SimState], tuple[SimState, Observables]]:
+    """The eager ensemble step: state -> (state, per-replica observables)."""
+    dev = resolve_device(device)
+    return lambda state: step_fn(state, cfg, dev, batched=True)
+
+
+def make_ensemble_chunk(cfg: SimConfig, chunk: Optional[int] = None,
+                        device=None):
+    """``chunk`` eager ensemble steps (default cfg.out_every) returning the
+    final step's observables."""
+    dev = resolve_device(device)
+    chunk = chunk or cfg.out_every
+
+    def run(state: SimState):
+        obs = None
+        for _ in range(chunk):
+            state, obs = step_fn(state, cfg, dev, batched=True)
+        return state, obs
+
+    return run
+
+
+def _final_hists(state: SimState, cfg: SimConfig):
+    info = cluster_labels(state, cfg)
+    return (cluster_histogram(info, cfg),
+            seeded_receptor_histogram(info, cfg))
+
+
+def make_ensemble_chunk_hist(cfg: SimConfig, chunk: Optional[int] = None,
+                             device=None):
+    """The eager chunk returning (state, (obs, hist, ahist)): ``hist`` the
+    per-replica ligand-seeded cluster-size histogram and ``ahist`` the
+    receptors-per-seeded-cluster histogram at the final step, the form of
+    the reference's cluster.log frames (main.cpp:2291-2305) that the
+    statistical validator compares."""
+    run = make_ensemble_chunk(cfg, chunk, device)
+
+    def f(state: SimState):
+        state, obs = run(state)
+        return state, (obs, *_final_hists(state, cfg))
+
+    return f
+
+
+def merge_observables(obs: Observables) -> Observables:
+    """Ensemble mean of each observable, float32."""
+    return Observables(*(x.to(torch.float32).mean(dim=0) for x in obs))
+
+
 def default_k_align(n_replicas: int) -> int:
     return max(n_replicas // 8, 32)
 
@@ -68,7 +120,7 @@ def default_k_align(n_replicas: int) -> int:
 def lazy_ensemble_step(state: SimState, cfg: SimConfig, k_align: int,
                        device=None) -> tuple[SimState, Observables]:
     """One ensemble step aligning only the ``k_align`` dirtiest replicas."""
-    _check_state_device(state, device)
+    check_state_device(state, device)
     n_rep = state.step.shape[0]
     k_align = min(k_align, n_rep)
 
@@ -118,3 +170,16 @@ def make_lazy_ensemble_chunk(cfg: SimConfig, chunk: Optional[int] = None,
         return state, obs
 
     return run
+
+
+def make_lazy_ensemble_chunk_hist(cfg: SimConfig, chunk: Optional[int] = None,
+                                  k_align: Optional[int] = None, device=None):
+    """The lazy chunk returning (state, (obs, hist, ahist)) as
+    ``make_ensemble_chunk_hist`` does."""
+    run = make_lazy_ensemble_chunk(cfg, chunk, k_align, device)
+
+    def f(state: SimState):
+        state, obs = run(state)
+        return state, (obs, *_final_hists(state, cfg))
+
+    return f

@@ -72,6 +72,35 @@ def empty_state(cfg: SimConfig, key: torch.Tensor) -> SimState:
     )
 
 
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device, "cuda" by default; raises when CUDA is
+    asked for (or defaulted to) and no card is present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("kmc_tpu_torch runs on a CUDA device by default "
+                           "and none is available; pass device='cpu' to run "
+                           "on the CPU")
+    return dev
+
+
+def check_state_device(state: SimState, device) -> None:
+    """Raise unless ``state`` lives on ``device`` (resolved as above)."""
+    dev = resolve_device(device)
+    have = state.a_xy.device
+    if have.type != dev.type or (dev.index is not None and have != dev):
+        raise ValueError(f"state lives on {have}, the step was asked to run "
+                         f"on {dev}")
+
+
+def init_state(cfg: SimConfig, seed: int = 0, device=None) -> SimState:
+    """Cold start of a single trajectory (one replica): random
+    non-overlapping placement from the base key of ``seed``, the JAX
+    package's ``init_state(cfg, seed)``."""
+    from kmc_tpu_torch.engine.init import random_init
+
+    return random_init(cfg, seed, resolve_device(device))
+
+
 def take_replicas(state: SimState, idx: torch.Tensor) -> SimState:
     """The replicas ``idx`` of every field."""
     return SimState(*(x[idx] for x in state))
@@ -80,10 +109,13 @@ def take_replicas(state: SimState, idx: torch.Tensor) -> SimState:
 # ---------------------------------------------------------------------------
 # Derived coordinates.
 
-def a_positions(a_xy, a_psi, cfg: SimConfig):
-    """Receptor bead/point coordinates, f32[..., n_a, 4, 4, 3]."""
+def a_positions(a_xy, a_psi, cfg: SimConfig, cos_sin=None):
+    """Receptor bead/point coordinates, f32[..., n_a, 4, 4, 3].
+    ``cos_sin`` gives (cos psi, sin psi) computed elsewhere."""
     tmpl = receptor_template(cfg, a_xy.device).reshape(16, 3)
-    c, s = torch.cos(a_psi)[..., None], torch.sin(a_psi)[..., None]
+    c, s = cos_sin if cos_sin is not None else (torch.cos(a_psi),
+                                                torch.sin(a_psi))
+    c, s = c[..., None], s[..., None]
     x, y = tmpl[:, 0], tmpl[:, 1]
     rx = x * c - y * s + a_xy[..., 0:1]
     ry = x * s + y * c + a_xy[..., 1:2]

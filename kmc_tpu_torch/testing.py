@@ -1,6 +1,7 @@
 """Inputs for checking the port's kernels against their plain versions:
-replica states with random bonded topologies, made from a seed, and K1's
-inputs formed from them exactly as the main path forms them."""
+replica states with random bonded topologies, made from a seed, and the
+inputs of K1 and K2 formed from them exactly as the main paths form
+them."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from kmc_tpu_torch import rng
 from kmc_tpu_torch.config import SimConfig
 from kmc_tpu_torch.engine.align import _choose_roots
 from kmc_tpu_torch.engine.clusters import cluster_labels
+from kmc_tpu_torch.models.tnfr import ligand_template
 from kmc_tpu_torch.parallel.ensemble import init_ensemble
 from kmc_tpu_torch.state import SimState
 
@@ -62,3 +64,20 @@ def align_core_inputs(st: SimState, cfg: SimConfig) -> list[torch.Tensor]:
             st.a_site.contiguous(), st.a_cis.contiguous(),
             st.b_partner.contiguous(), st.b_laid.to(i32),
             root.to(i32), (info.size > 1).to(i32)]
+
+
+def align_core_single_inputs(st: SimState,
+                             cfg: SimConfig) -> list[torch.Tensor]:
+    """K2's twelve inputs for the one replica of ``st``: K1's inputs as
+    [n, 1] columns and the ligand template (ops/align.align_core)."""
+    if st.step.shape[0] != 1:
+        raise ValueError(f"K2 takes one replica, got {st.step.shape[0]}")
+    (a_xy, a_dir, b_center, b_quat, a_trans, a_site, a_cis, b_partner,
+     b_laid, root, act) = (x[0] for x in align_core_inputs(st, cfg))
+    a_trans, a_site, a_cis, b_laid, root, act = (
+        x[:, None].contiguous() for x in (a_trans, a_site, a_cis, b_laid,
+                                          root, act))
+    return [a_xy.contiguous(), a_dir.contiguous(), b_center.contiguous(),
+            b_quat.contiguous(), a_trans, a_site, a_cis,
+            b_partner.contiguous(), b_laid, root, act,
+            ligand_template(cfg, st.a_xy.device).contiguous()]

@@ -1,4 +1,4 @@
-"""Port parity for the idealize stage and its kernel K1.
+"""Port parity for the idealize stage and its kernels K1 and K2.
 
 * The plain version of K1 (kmc_tpu_torch.ops.align_batched) against the
   JAX package's Pallas kernel (align_core_batched, interpret mode, as
@@ -9,7 +9,14 @@
 * idealize_fused and idealize of the port against kmc_tpu's on the same
   states and keys, with the same tolerances.
 
-The CUDA kernel is held against the plain version on the card by
+* The plain version of K2 (kmc_tpu_torch.ops.align) against the JAX
+  package's single-replica Pallas kernel (interpret mode) on K2's own
+  operands, and the port's single-trajectory ``align_core`` against
+  kmc_tpu's ``align_core(..., interpret=True)``, on the fixtures of
+  tests/test_pallas_align.py (loose trans, unlaid, merged complex, cis
+  pair) and the bonded chain at the origin: the same tolerances.
+
+The CUDA kernels are held against their plain versions on the card by
 tests/test_torch_kernels.py.
 
 The bonded fixtures sit near the origin, as the JAX suite's do.  The
@@ -30,12 +37,16 @@ from kmc_tpu.engine.align import (_choose_roots as j_choose_roots,
                                   idealize as j_idealize,
                                   idealize_fused as j_idealize_fused)
 from kmc_tpu.engine.clusters import cluster_labels as j_labels
+from kmc_tpu.models.tnfr import ligand_template
+from kmc_tpu.ops.pallas_align import _core_for
+from kmc_tpu.ops.pallas_align import align_core as j_align_core
 from kmc_tpu.ops.pallas_align_batched import align_core_batched as j_core
 from kmc_tpu_torch import convert
 from kmc_tpu_torch import rng as trng
 from kmc_tpu_torch.engine.align import idealize as t_idealize
 from kmc_tpu_torch.engine.align import idealize_fused as t_idealize_fused
 from kmc_tpu_torch.engine.clusters import cluster_labels as t_labels
+from kmc_tpu_torch.ops import align as k2
 from kmc_tpu_torch.ops import align_batched, build
 
 from test_torch_clusters import (BONDED_FIXTURES, jax_fields, long_chain,
@@ -201,3 +212,112 @@ def test_source_hash_covers_sources():
     h = build.source_hash()
     assert len(h) == 16 and h == build.source_hash()
     assert any(p.endswith("align_batched.cu") for p in build._sources())
+    # one library per kernel source; the shared header is hashed too
+    assert build.kernel_names() == ["align", "align_batched"]
+    assert any(p.endswith("align_core.cuh") for p in build._sources())
+
+
+# ---------------------------------------------------------------------------
+# K2, the single-replica core (kmc_tpu_torch/ops/align.py)
+
+K2_FIXTURES = (loose_trans, unlaid_ligand, merged_complex, loose_cis,
+               long_chain)
+
+
+def _k2_operands(cfg, st):
+    """K2's twelve operands for one JAX state, as numpy, with roots from
+    kmc_tpu's root choice (align stream of step STEP)."""
+    (a_xy, a_dir, b_center, b_quat, a_trans, a_site, a_cis, b_partner,
+     b_laid, root, act) = (x[0] for x in core_inputs(cfg, [st]))
+    col = [np.ascontiguousarray(x[:, None]) for x in
+           (a_trans, a_site, a_cis, b_laid, root, act)]
+    return [a_xy, a_dir, b_center, b_quat, *col[:3], b_partner, *col[3:],
+            np.array(ligand_template(cfg))]
+
+
+@pytest.mark.parametrize("fixture", K2_FIXTURES,
+                         ids=[f.__name__ for f in K2_FIXTURES])
+def test_single_core_plain_matches_pallas_kernel(small_cfg, fixture):
+    """K2's plain version against kmc_tpu's single-replica Pallas kernel
+    (interpret mode) on K2's own operands: 1e-4 A / 1e-5, codes exact."""
+    cfg = small_cfg
+    ops = _k2_operands(cfg, fixture(cfg))
+    core = _core_for(cfg, True)
+    j_args = [jnp.asarray(x[:, 0]) if x.ndim == 2 and x.shape[1] == 1
+              else jnp.asarray(x) for x in ops]
+    want = core(*j_args)
+    got = k2.align_core_single_plain(*map(torch.from_numpy, ops),
+                                     port_cfg(cfg))
+    assert got[2].shape == (cfg.n_a, 1) and got[5].shape == (cfg.n_b, 1)
+    assert_core_close([g.squeeze(-1) if i in (2, 5) else g
+                       for i, g in enumerate(got)], want)
+
+
+@pytest.mark.parametrize("fixture", K2_FIXTURES,
+                         ids=[f.__name__ for f in K2_FIXTURES])
+def test_single_align_core_matches(small_cfg, fixture):
+    """The port's single-trajectory ``align_core`` (CPU: K2's plain
+    version) against kmc_tpu's ``align_core(..., interpret=True)``."""
+    cfg = small_cfg
+    st = fixture(cfg)
+    info = j_labels(st, cfg)
+    skey = jrng.stream_key(jrng.step_key(st.key, STEP), jrng.STREAM_ALIGN)
+    root = j_choose_roots(st, info, skey, cfg)
+    act = info.size > 1
+    want = j_align_core(st, root, act, cfg, interpret=True)
+    ts = convert.from_numpy(jax_fields(st), batched=False)
+    got = k2.align_core(ts, torch.from_numpy(np.array(root))[None],
+                        torch.from_numpy(np.array(act))[None],
+                        port_cfg(cfg))
+    tols = (POS_TOL, ANG_TOL, POS_TOL, ANG_TOL, None, None)
+    for name, g, w, tol in zip(("a_xy", "a_psi", "b_center", "b_quat",
+                                "b_laid", "unreached"), got, want, tols):
+        g, w = g[0].numpy(), np.asarray(w)
+        if tol is None:
+            np.testing.assert_array_equal(g, w, name)
+        else:
+            np.testing.assert_allclose(g, w, rtol=0, atol=tol, err_msg=name)
+
+
+def test_single_plain_equals_batched_plain(small_cfg):
+    """K2's plain version is K1's plain version on a batch of one, the
+    template taken from its input."""
+    cfg = small_cfg
+    ops = [torch.from_numpy(x) for x in _k2_operands(cfg, long_chain(cfg))]
+    got = k2.align_core_single_plain(*ops, port_cfg(cfg))
+    cols = (4, 5, 6, 8, 9, 10)
+    want = align_batched.align_core_batched_plain(
+        *(x[:, 0][None] if i in cols else x[None]
+          for i, x in enumerate(ops[:-1])), port_cfg(cfg))
+    for g, w in zip(got, want):
+        assert torch.equal(g.reshape(w[0].shape), w[0])
+    # a scaled template moves the seats: the input is read, not ignored
+    moved = k2.align_core_single_plain(*ops[:-1], ops[-1] * 1.5,
+                                       port_cfg(cfg))
+    assert not torch.equal(moved[0], got[0])
+
+
+def test_single_wrapper_cpu_route_and_checks(small_cfg):
+    cfg = port_cfg(small_cfg)
+    ops = [torch.from_numpy(x)
+           for x in _k2_operands(small_cfg, merged_complex(small_cfg))]
+    before = k2.align_core_single.launches
+    got = k2.align_core_single(*ops, cfg)
+    want = k2.align_core_single_plain(*ops, cfg)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert k2.align_core_single.launches == before
+    k2._check_inputs(ops, cfg)
+    bad = list(ops)
+    bad[4] = ops[4][:, 0].contiguous()                   # [na] not [na, 1]
+    with pytest.raises(ValueError):
+        k2._check_inputs(bad, cfg)
+    bad = list(ops)
+    bad[11] = ops[11].double()
+    with pytest.raises(TypeError):
+        k2._check_inputs(bad, cfg)
+    with pytest.raises(ValueError):
+        k2.align_core_single(*[x.to("meta") for x in ops], cfg)
+    st = convert.from_numpy(stack_fields([merged_complex(small_cfg)] * 2))
+    with pytest.raises(ValueError, match="one replica"):
+        k2.align_core(st, st.b_laid.new_zeros((2, cfg.n)),
+                      st.b_laid.new_zeros((2, cfg.n)), cfg)

@@ -1,5 +1,10 @@
-"""The port's slice as a whole: cold start, the lazy replica-ensemble step
-and its entry points, held against kmc_tpu.
+"""The port's ensembles as a whole: cold start, the lazy replica-ensemble
+step, the eager ensemble chunk, both *_hist chunks, broadcast and merge,
+held against kmc_tpu.
+
+The chunk tests run 8 free-running steps on 4 bonded replicas of
+small_cfg in both packages: topology, flags, keys, observables and
+histograms bitwise, poses within 1e-4 A.
 
 The trajectory test is teacher-forced: at each of 30 steps of a kmc_tpu
 lazy-ensemble trajectory, the JAX state is carried into the port, the port
@@ -114,7 +119,11 @@ def assert_obs_match(got, want, where):
 
 def test_port_imports_no_jax():
     code = ("import sys, kmc_tpu_torch, kmc_tpu_torch.parallel.ensemble, "
-            "kmc_tpu_torch.ops.align_batched, kmc_tpu_torch.convert; "
+            "kmc_tpu_torch.ops.align_batched, kmc_tpu_torch.convert, "
+            "kmc_tpu_torch.cli, kmc_tpu_torch.engine.step, "
+            "kmc_tpu_torch.ops.align, kmc_tpu_torch.io.checkpoint, "
+            "kmc_tpu_torch.io.native, kmc_tpu_torch.io.writers, "
+            "kmc_tpu_torch.utils.checks, kmc_tpu_torch.testing; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'kmc_tpu' or "
             "m.startswith('kmc_tpu.')]; print(bad); "
@@ -210,3 +219,62 @@ def test_chunk_runs_and_keeps_invariants():
     assert torch.equal(obs.bond_num,
                        obs.bond_rl + obs.bond_mono_cis + obs.bond_cis)
     assert torch.isfinite(st.a_xy).all() and torch.isfinite(st.b_quat).all()
+
+
+CHUNK = 8
+
+
+@pytest.mark.parametrize("kind", ["eager", "eager_hist", "lazy_hist"])
+def test_ensemble_chunks_match(small_cfg, kind):
+    """The eager chunk and both *_hist chunks against kmc_tpu's on 4
+    bonded replicas of small_cfg: topology, flags, keys, observables and
+    histograms bitwise, poses within 1e-4 A."""
+    from kmc_tpu.parallel import ensemble as jens
+    from kmc_tpu_torch.parallel import ensemble as tens
+
+    cfg = small_cfg
+    tcfg = port_cfg(cfg)
+    js = jax_batch([bonded_start(cfg, r) for r in range(4)])
+    ts = convert.from_numpy(jax_fields(js))
+    if kind == "eager":
+        jf = jens.make_ensemble_chunk(cfg, CHUNK, donate=False)
+        tf = tens.make_ensemble_chunk(tcfg, CHUNK, device="cpu")
+    elif kind == "eager_hist":
+        jf = jens.make_ensemble_chunk_hist(cfg, CHUNK, donate=False)
+        tf = tens.make_ensemble_chunk_hist(tcfg, CHUNK, device="cpu")
+    else:
+        jf = jens.make_lazy_ensemble_chunk_hist(cfg, CHUNK, k_align=2,
+                                                donate=False)
+        tf = tens.make_lazy_ensemble_chunk_hist(tcfg, CHUNK, k_align=2,
+                                                device="cpu")
+    js, jout = jf(js)
+    ts, tout = tf(ts)
+    assert_states_match(ts, jax_fields(js), kind)
+    if kind == "eager":
+        assert_obs_match(tout, jout, kind)
+        return
+    assert_obs_match(tout[0], jout[0], kind)
+    for name, got, want in zip(("hist", "ahist"), tout[1:], jout[1:]):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want), name)
+    # the replicas hold ligand-seeded complexes to count
+    assert (tout[1].numpy()[:, 2:].sum() > 0)
+
+
+def test_broadcast_and_merge_match(small_cfg):
+    from kmc_tpu.parallel import ensemble as jens
+    from kmc_tpu_torch.engine.observables import Observables
+    from kmc_tpu_torch.parallel import ensemble as tens
+
+    js = bonded_start(small_cfg, 0)
+    ts = convert.from_numpy(jax_fields(js), batched=False)
+    jb = jens.broadcast_ensemble(js, 5, seed=9)
+    tb = tens.broadcast_ensemble(ts, 5, seed=9)
+    assert_states_match(tb, jax_fields(jb), "broadcast")
+    _, jobs = j_eager_step(small_cfg, donate=False)(jb)
+    merged_t = tens.merge_observables(
+        Observables(*(torch.from_numpy(np.array(x)) for x in jobs)))
+    merged_j = jens.merge_observables(jobs)
+    for f in merged_j._fields:
+        np.testing.assert_allclose(getattr(merged_t, f).numpy(),
+                                   np.asarray(getattr(merged_j, f)),
+                                   rtol=1e-6, err_msg=f)
