@@ -36,11 +36,29 @@ per phase with the seconds since start:
    (bytes over 3.35 TB/s, operations over 67 TFLOP/s);
 9. where the time goes: each stage of the step timed alone by CUDA
    events, and torch.profiler over one main-path step (device busy share,
-   top kernels).
+   top kernels);
+10. K3 vs plain: the lattice kernel (csrc/lattice.cu) against its plain
+    version lattice_step on the card, to the bit, every step: 64 steps at
+    LatticeConfig() (512^2, density 0.04) and at a dense setting, 4 steps
+    at 8192^2, 64 steps at 64 x 96; all 8 (hop axis, reaction direction)
+    variants must occur;
+11. lattice card vs CPU: 10 K3 steps at 512^2 against the plain version
+    on the CPU from the same state, to the bit;
+12. lattice CLI: --engine lattice --steps 2000 --out-every 500 at
+    LatticeConfig(), then a resume to 1,000 more with --lattice-pallas;
+    lattice.dat rows and the checkpoint must be there, and K3 must launch
+    once per step, K1 and K2 never;
+13. lattice physics: BASELINE config 2 (the mapped receptor lattice at
+    512^2, 10,000 particles, no reactions), 1,500 K3 steps; the MSD per
+    step within 10 % of the reference's 2 D dt / 9;
+14. K3 timing: device time (torch.profiler) at 512^2 and 8192^2, a
+    wrapper call (CUDA events), the plain version, and the bound.
 
-The last three lines are one JSON object with one entry per kernel, the
-card's ``nvidia-smi`` name and power limit, and the result line
-``{"ok": true, "device": {...}}``.  Any failed check exits nonzero.
+Each phase of a path sets every launch count to 0 before it runs the path
+and reads the counts just after.  The last three lines are one JSON
+object with one entry per kernel, the card's ``nvidia-smi`` name and
+power limit, and the result line ``{"ok": true, "device": {...}}``.  Any
+failed check exits nonzero.
 """
 
 from __future__ import annotations
@@ -58,6 +76,18 @@ T0 = time.perf_counter()
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
+# H100 SXM 32-bit integer rate: 64 INT32 lanes a SM (half the float32
+# lanes), 132 SMs, 1.98 GHz, a multiply-add counted as two operations as
+# the float32 figure counts one: half of FP32_FLOPS
+INT32_OPS = 33.5e12
+# integer operations K3 needs a cell: the counter (2); four hash draws of
+# 23 each (2 adds, two avalanche rounds of 8, the re-key xor, 3 to form
+# the uniform, the compare), 3 more for the hop draw's scaling; 6 to form
+# the flags; about 10 in each of the four sub-passes
+LATTICE_OPS_PER_CELL = 2 + 4 * 23 + 3 + 6 + 4 * 10
+LATTICE_STEPS, LATTICE_BIG, LATTICE_BIG_STEPS = 64, 8192, 4
+LAT_CLI_STEPS, LAT_CLI_RESUME, LAT_CLI_OUT_EVERY = 2000, 1000, 500
+LAT_MSD_STEPS, LAT_MSD_PARTICLES, LAT_SPACING = 1500, 10_000, 20.0
 POS_TOL, ANG_TOL = 1e-4, 1e-5
 REPLICAS, K_ALIGN, WARMUP, TIMED = 512, 64, 2, 20
 SINGLE_STEPS, SINGLE_RESUME, SINGLE_OUT_EVERY = 100, 150, 50
@@ -183,9 +213,17 @@ def mutual(st, cfg) -> bool:
 
 
 def reset_counts(k1, k2) -> None:
+    """Every kernel's launch count to 0 (K3's too)."""
     k1.launches = 0
     k1.replicas = 0
     k2.launches = 0
+    k3_wrapper().launches = 0
+
+
+def k3_wrapper():
+    from kmc_tpu_torch.ops import lattice
+
+    return lattice.lattice_block_call
 
 
 def single_cli_phase(cfg, dev, k1, k2):
@@ -223,7 +261,7 @@ def single_cli_phase(cfg, dev, k1, k2):
                           "checkpoint.npz", "parameter.log"):
                     if not os.path.isfile(os.path.join(out, f)):
                         fail(f"single-trajectory CLI wrote no {f}")
-        k1_n, k2_n = k1.launches, k2.launches
+        k1_n, k2_n, k3_n = k1.launches, k2.launches, k3_wrapper().launches
         if "resuming from" not in runs[1][2]:
             fail(f"second CLI run did not resume: {runs[1][2]!r}")
         times = [float(r.split()[0]) for r in read_lines(out, "bond.dat")]
@@ -246,9 +284,9 @@ def single_cli_phase(cfg, dev, k1, k2):
         f"{times[-1]:.0f} ns without a gap; last row '{last.strip()}'; "
         f"test.gro by the {fmt} formatter; resumed: "
         f"{runs[1][2].strip().splitlines()[0]}")
-    if k2_n != steps or k1_n != 0:
+    if k2_n != steps or k1_n != 0 or k3_n != 0:
         fail(f"single trajectory: K2 launched {k2_n} times in {steps} steps "
-             f"and K1 {k1_n} times (want {steps} and 0)")
+             f"and K1 {k1_n}, K3 {k3_n} times (want {steps}, 0 and 0)")
     return k2_n
 
 
@@ -267,6 +305,7 @@ def ensemble_cli_phase(cfg, dev, k1, k2):
         torch_sync()
         sec = time.perf_counter() - t
         k1_n, k1_reps, k2_n = k1.launches, k1.replicas, k2.launches
+        k2_n += k3_wrapper().launches      # neither K2 nor K3 may launch
         if rc != 0:
             fail(f"ensemble CLI returned {rc}")
         rows = [r for r in read_lines(out, "bond_ens.dat")
@@ -280,11 +319,11 @@ def ensemble_cli_phase(cfg, dev, k1, k2):
         f"{sec:.3f} s = {1e3 * sec / ENS_STEPS:.2f} ms/step, "
         f"{REPLICAS * ENS_STEPS / sec:.1f} replica-steps/s (cold start and "
         f"I/O every {ENS_OUT_EVERY} steps included); K1 launches {k1_n} "
-        f"aligning {k1_reps} replicas, K2 launches {k2_n}; bond_ens.dat "
+        f"aligning {k1_reps} replicas, K2 + K3 launches {k2_n}; bond_ens.dat "
         f"{len(rows)} rows, last t = {last[0]} ns, mean rl {last[1]}")
     if k1_n != ENS_STEPS or k1_reps != ENS_STEPS * REPLICAS or k2_n != 0:
         fail(f"ensemble CLI: K1 {k1_n} launches over {k1_reps} replicas, "
-             f"K2 {k2_n} (want {ENS_STEPS} at B = {REPLICAS}, and 0)")
+             f"K2 + K3 {k2_n} (want {ENS_STEPS} at B = {REPLICAS}, and 0)")
 
 
 def torch_sync():
@@ -344,10 +383,228 @@ def time_kernel(wrapper, plain, args, kernel_symbol, calls=500):
     return k_ms, call_ms, plain_ms, how
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, ops_per_s=FP32_FLOPS):
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * flops / FP32_FLOPS
+    t_ops = 1e3 * flops / ops_per_s
     return max((t_bytes, "bytes"), (t_ops, "operations"))
+
+
+# ---------------------------------------------------------------------------
+# the lattice engine and K3
+
+def lattice_work(h, w):
+    """(bytes, integer operations) of one K3 step of an h x w grid: grid
+    int32 and disp int32 x 2 read once and written once, step and seed
+    read once: 24 bytes a cell; LATTICE_OPS_PER_CELL a cell."""
+    return 24 * h * w + 8, LATTICE_OPS_PER_CELL * h * w
+
+
+def k3_vs_plain(cfg, seed, steps, dev, seen):
+    """K3 against lattice_step on the card, every step, to the bit; adds
+    each step's (hop axis, reaction direction) to ``seen``.  Returns the
+    final state and the largest absolute difference seen (0 or a
+    failure)."""
+    import torch
+    from kmc_tpu_torch.lattice.grid import init_lattice, particle_count
+    from kmc_tpu_torch.lattice.step import lattice_step, step_variant
+    from kmc_tpu_torch.ops.lattice import pallas_lattice_step
+
+    st = init_lattice(cfg, seed=seed, device=dev)
+    n0 = int(particle_count(st))
+    worst = 0.0
+    for i in range(steps):
+        seen.add(step_variant(st))
+        got = pallas_lattice_step(st, cfg)
+        want = lattice_step(st, cfg)
+        torch.cuda.synchronize()
+        for f in ("grid", "disp", "step", "time"):
+            a, b = getattr(got, f), getattr(want, f)
+            worst = max(worst, float((a.double() - b.double()).abs().max()))
+            if not torch.equal(a, b):
+                fail(f"K3 {cfg.height}x{cfg.width} step {i}: {f} differs "
+                     f"from the plain version in {int((a != b).sum())} "
+                     "entries")
+        st = got
+    if int(particle_count(st)) != n0:
+        fail(f"K3 {cfg.height}x{cfg.width}: particle count {n0} -> "
+             f"{int(particle_count(st))}")
+    return st, worst
+
+
+def lattice_phases(dev):
+    """Phases 10-14; returns K3's entry of the kernels line."""
+    import torch
+    from kmc_tpu_torch import LatticeConfig, SimConfig, cli, convert
+    from kmc_tpu_torch.lattice.grid import (init_lattice, msd,
+                                            particle_count,
+                                            species_histogram)
+    from kmc_tpu_torch.lattice.mapping import (msd_per_step_A2,
+                                               reference_lattice_config)
+    from kmc_tpu_torch.lattice.step import lattice_step, lattice_step_arrays
+    from kmc_tpu_torch.ops import lattice as k3_ops
+    from kmc_tpu_torch.ops.align import align_core_single
+    from kmc_tpu_torch.ops.align_batched import align_core_batched
+
+    k3 = k3_ops.lattice_block_call
+    base = LatticeConfig()
+    dense = base.replace(density=0.15, ass_prob=0.3, diss_prob=0.1)
+
+    # ---- 10. K3 against its plain version ----
+    seen, k3_err = set(), 0.0
+    for name, cfg, steps in (
+            ("LatticeConfig()", base, LATTICE_STEPS),
+            ("dense", dense, LATTICE_STEPS),
+            (f"{LATTICE_BIG}^2", base.replace(height=LATTICE_BIG,
+                                             width=LATTICE_BIG),
+             LATTICE_BIG_STEPS),
+            ("64x96", dense.replace(height=64, width=96), LATTICE_STEPS)):
+        t = time.perf_counter()
+        st, err = k3_vs_plain(cfg, 1, steps, dev, seen)
+        k3_err = max(k3_err, err)
+        hist = species_histogram(st).tolist()
+        log("K3 vs plain", f"{name} ({cfg.height}x{cfg.width}, density "
+            f"{cfg.density}, ass {cfg.ass_prob}, diss {cfg.diss_prob}): "
+            f"{steps} steps bitwise equal (grid, disp, step, time); "
+            f"{int(particle_count(st))} particles conserved, species "
+            f"{hist}; {time.perf_counter() - t:.2f} s")
+        del st
+    log("K3 vs plain", f"(hop axis, reaction direction) variants seen: "
+        f"{sorted(seen)}")
+    if len(seen) != 8:
+        fail(f"K3 comparison saw {len(seen)} of the 8 direction variants")
+
+    # ---- 11. card vs CPU ----
+    st = init_lattice(base, seed=2, device=dev)
+    cpu = convert.lattice_from_numpy(convert.lattice_to_numpy(st))
+    st = k3_ops.make_pallas_lattice_chunk(base, 10)(st)
+    for _ in range(10):
+        cpu = lattice_step(cpu, base)
+    for f in cpu._fields:
+        if not torch.equal(getattr(st, f).cpu(), getattr(cpu, f)):
+            fail(f"lattice card vs CPU: {f} differs after 10 steps")
+    log("lattice card vs CPU", "10 K3 steps at 512^2 on the card equal the "
+        "plain version on the CPU, to the bit (grid, disp, step, seed, "
+        "time)")
+
+    # ---- 12. the lattice CLI ----
+    k1, k2 = align_core_batched, align_core_single
+    with tempfile.TemporaryDirectory(prefix="kmc_lat_") as out:
+        base_argv = ["--engine", "lattice", "--out", out, "--seed", "0",
+                     "--device", dev.type, "--out-every",
+                     str(LAT_CLI_OUT_EVERY), "--quiet"]
+        runs = []
+        reset_counts(k1, k2)
+        for steps, extra in ((LAT_CLI_STEPS, []),
+                             (LAT_CLI_RESUME, ["--lattice-pallas"])):
+            said = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(said):
+                rc = cli.main(["--steps", str(steps), *base_argv, *extra])
+            torch.cuda.synchronize()
+            runs.append((steps, time.perf_counter() - t, said.getvalue(),
+                         extra))
+            if rc != 0:
+                fail(f"lattice CLI returned {rc}")
+        k1_n, k2_n, k3_n = k1.launches, k2.launches, k3.launches
+        rows = read_lines(out, "lattice.dat")
+        if not os.path.isfile(os.path.join(out, "lattice_checkpoint.npz")):
+            fail("lattice CLI wrote no lattice_checkpoint.npz")
+    total = LAT_CLI_STEPS + LAT_CLI_RESUME
+    want_steps = list(range(LAT_CLI_OUT_EVERY, total + 1, LAT_CLI_OUT_EVERY))
+    if [int(r.split()[0]) for r in rows] != want_steps:
+        fail(f"lattice.dat steps {[r.split()[0] for r in rows]}, want "
+             f"{want_steps}")
+    if len({r.split()[1] for r in rows}) != 1:
+        fail(f"lattice CLI: particle count changed: {rows}")
+    if "resuming lattice from" not in runs[1][2]:
+        fail(f"second lattice CLI run did not resume: {runs[1][2]!r}")
+    cells = base.height * base.width
+    for n, sec, _, extra in runs:
+        log("lattice CLI", f"--steps {n} {' '.join(extra)}: {sec:.3f} s = "
+            f"{1e3 * sec / n:.4f} ms/step, {cells * n / sec:.4g} "
+            f"site-updates/s ({base.height}x{base.width}; output every "
+            f"{LAT_CLI_OUT_EVERY} steps included; first run includes the "
+            "cold start)")
+    log("lattice CLI", f"K3 launches {k3_n} for {total} steps, K1 {k1_n}, "
+        f"K2 {k2_n}; lattice.dat {len(rows)} rows, last '{rows[-1]}'")
+    if k3_n != total or k1_n != 0 or k2_n != 0:
+        fail(f"lattice CLI: K3 launched {k3_n} times in {total} steps, K1 "
+             f"{k1_n}, K2 {k2_n} (want {total}, 0, 0)")
+
+    # ---- 13. BASELINE config 2 physics ----
+    ref = SimConfig()
+    lcfg = reference_lattice_config(ref, spacing=LAT_SPACING,
+                                    species="receptor", height=512,
+                                    width=512).replace(ass_prob=0.0,
+                                                       diss_prob=0.0)
+    st = init_lattice(lcfg, seed=1, n_particles=LAT_MSD_PARTICLES,
+                      device=dev)
+    t = time.perf_counter()
+    st = k3_ops.make_pallas_lattice_chunk(lcfg, LAT_MSD_STEPS)(st)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    measured = float(msd(st)) * LAT_SPACING ** 2 / LAT_MSD_STEPS
+    analytic = msd_per_step_A2(ref, "receptor")
+    rel = measured / analytic - 1.0
+    log("lattice physics", f"config 2 (512^2, {LAT_MSD_PARTICLES} "
+        f"particles, hop {lcfg.hop_prob:.6g}, no reactions): "
+        f"{LAT_MSD_STEPS} K3 steps in {sec:.3f} s; MSD per step "
+        f"{measured:.5f} A^2 vs 2 D dt / 9 = {analytic:.5f} A^2 "
+        f"({100 * rel:+.2f} %, bound 10 %); particles "
+        f"{int(particle_count(st))}")
+    if abs(rel) > 0.1 or int(particle_count(st)) != LAT_MSD_PARTICLES:
+        fail("lattice physics: MSD per step off by more than 10 % or "
+             "particles not conserved")
+
+    # ---- 14. K3 timing ----
+    timing = {}
+    for size in (base.height, LATTICE_BIG):
+        cfg = base.replace(height=size, width=size)
+        s0 = init_lattice(cfg, seed=3, device=dev)
+        args = (s0.grid, s0.disp, s0.step, s0.seed)
+        k_ms, call_ms, plain_ms, how = time_kernel(
+            lambda *a: k3(*a, cfg), lambda *a: lattice_step_arrays(*a, cfg),
+            args, "lattice_step_kernel",
+            calls=500 if size == base.height else 100)
+        nbytes, ops = lattice_work(size, size)
+        bound_ms, bound_by = bound(nbytes, ops, INT32_OPS)
+        timing[size] = (k_ms, plain_ms, bound_ms, bound_by)
+        log("K3 timing", f"{size}^2: kernel {how}; wrapper call "
+            f"{call_ms * 1e3:.2f} us (CUDA events); plain "
+            f"{plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.3f} us by "
+            f"{bound_by} ({nbytes} bytes, {ops} integer ops); kernel / "
+            f"bound {k_ms / bound_ms:.2f}; "
+            f"{size * size / (k_ms * 1e-3):.4g} site-updates/s of device "
+            "time")
+        del s0, args
+    chunk = k3_ops.make_pallas_lattice_chunk(base, 100)
+    holder = [init_lattice(base, seed=4, device=dev)]
+    holder.append(chunk(holder[0]))
+    rows, wall = profile_kernels(lambda: holder.append(chunk(holder[-1])))
+    dev_ms = sum(r[1] for r in rows) / 1e3
+    if dev_ms > 0:
+        top = "; ".join(f"{k[:40]} {us:.1f} us x{n}" for k, us, n in rows[:3])
+        log("profile", f"100 lattice steps (512^2) under the profiler: wall "
+            f"{wall * 1e3:.2f} ms, kernels {dev_ms:.3f} ms in "
+            f"{sum(r[2] for r in rows)} launches (device busy "
+            f"{100 * dev_ms / (wall * 1e3):.1f} %); top: {top}")
+    else:
+        log("profile", "device time not measured (the profiler recorded "
+            "no CUDA kernel)")
+    k_ms, plain_ms, bound_ms, bound_by = timing[base.height]
+    return {
+        "name": "lattice",
+        "route": "cuda",
+        "source": "kmc_tpu_torch/csrc/lattice.cu",
+        "replaces": "kmc_tpu/ops/pallas_lattice.py:78",
+        "launches": k3_n,
+        "max_abs_err": k3_err,
+        "ms": k_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+    }
 
 
 def main() -> int:
@@ -445,7 +702,7 @@ def main() -> int:
     state, obs = timed(state)
     torch.cuda.synchronize()
     t_timed = time.perf_counter() - t
-    launches, k2_lazy = k1.launches, k2.launches
+    launches, k2_lazy = k1.launches, k2.launches + k3_wrapper().launches
     steps = WARMUP + TIMED
     rs_per_s = REPLICAS * TIMED / t_timed
     events = cfg.n + cfg.n_a * cfg.n_b * 3 + 2 * cfg.n_a * (cfg.n_a - 1)
@@ -458,7 +715,7 @@ def main() -> int:
         f"ms/step; {rs_per_s:.1f} replica-steps/s; "
         f"{rs_per_s * events:.4g} event-attempts/s ({events} per "
         f"replica-step)")
-    log("main path", f"K1 launches {launches} for {steps} steps, K2 "
+    log("main path", f"K1 launches {launches} for {steps} steps, K2 + K3 "
         f"launches {k2_lazy}; dirty "
         f"replicas {int(state.dirty.sum())}/{REPLICAS}; mean bonds "
         f"rl {obs.bond_rl.float().mean():.3f} cis "
@@ -466,7 +723,7 @@ def main() -> int:
         f"{obs.bond_mono_cis.float().mean():.3f}; finite={finite}; "
         f"mutual={ok_mutual}; step={int(state.step[0])}")
     if launches != steps or k2_lazy != 0:
-        fail(f"K1 launched {launches} times and K2 {k2_lazy} times in "
+        fail(f"K1 launched {launches} times and K2 + K3 {k2_lazy} times in "
              f"{steps} main-path steps")
     if not finite or not ok_mutual:
         fail("main-path state not finite or bonds not mutual")
@@ -577,6 +834,9 @@ def main() -> int:
             f"{wall * 1e3:.1f} ms, kernels {dev_ms:.2f} ms in "
             f"{sum(r[2] for r in rows)} launches; top: {top}")
 
+    # ---- 10-14. the lattice engine and K3 ----
+    k3_entry = lattice_phases(dev)
+
     print(json.dumps({"kernels": [{
         "name": "align_batched",
         "route": "cuda",
@@ -601,7 +861,7 @@ def main() -> int:
         "bound_ms": bound2_ms,
         "bound_by": bound2_by,
         "library_ms": None,
-    }]}), flush=True)
+    }, k3_entry]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": count}}), flush=True)

@@ -11,11 +11,15 @@ Example::
 
     python -m kmc_tpu_torch.cli --steps 100000 --out runs/ref --seed 1
     python -m kmc_tpu_torch.cli --steps 2000 --replicas 512 --out runs/ens
+    python -m kmc_tpu_torch.cli --engine lattice --steps 2000 --out runs/lat
 
-Not ported yet: the lattice engine (``--engine lattice``,
-``--lattice-pallas``, ``--lattice-rf``; ROADMAP Queue 1 items 11-12),
-which exits with an error, and sharding an ensemble over several cards
-(item 13): an ensemble runs on one card.
+``--engine lattice`` runs the lattice engine (``LatticeConfig`` keys in
+``--set``): on the card through the kernel K3 (``csrc/lattice.cu``), with
+or without ``--lattice-pallas``, since the JAX package's XLA step and its
+kernel give the same bits; with ``--device cpu`` through the plain
+version.  Not ported yet: the lattice engine's rejection-free mode
+(``--lattice-rf``), which exits with an error, and sharding an ensemble
+over several cards: an ensemble runs on one card.
 """
 
 from __future__ import annotations
@@ -71,14 +75,16 @@ def main(argv=None):
     ap.add_argument("--engine", choices=["particle", "lattice"],
                     default="particle",
                     help="particle: the reference-parity rigid-body engine; "
-                         "lattice: not ported yet")
+                         "lattice: the occupancy-grid engine (LatticeConfig "
+                         "keys in --set)")
     ap.add_argument("--lattice-pallas", action="store_true",
-                    help="lattice engine kernel (not ported yet)")
+                    help="lattice engine: the fused kernel, which the card "
+                         "runs with or without this flag")
     ap.add_argument("--lattice-rf", action="store_true",
                     help="lattice engine rejection-free mode (not ported "
                          "yet)")
     ap.add_argument("--out-every", type=int, default=None,
-                    help="lattice engine output cadence (not ported yet)")
+                    help="lattice engine output cadence (default 1000)")
     ap.add_argument("--resume", default="auto",
                     choices=["auto", "native", "reference", "none"])
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
@@ -86,16 +92,18 @@ def main(argv=None):
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
 
-    if args.engine == "lattice" or args.lattice_pallas or args.lattice_rf:
-        raise SystemExit("the lattice engine (--engine lattice, "
-                         "--lattice-pallas, --lattice-rf) is not ported to "
-                         "kmc_tpu_torch yet; use kmc_tpu.cli")
+    if args.lattice_rf:
+        raise SystemExit("the lattice engine's rejection-free mode "
+                         "(--lattice-rf) is not ported to kmc_tpu_torch yet; "
+                         "use kmc_tpu.cli")
+    from kmc_tpu_torch.state import resolve_device
+
+    if args.engine == "lattice":
+        return run_lattice(args, resolve_device(args.device))
 
     cfg = SimConfig.from_json(args.config) if args.config else SimConfig()
     cfg = SimConfig.from_dict(coerce(cfg.to_dict(),
                                      parse_overrides(args.sets)))
-    from kmc_tpu_torch.state import resolve_device
-
     device = resolve_device(args.device)
 
     if args.replicas > 1:
@@ -142,6 +150,48 @@ def main(argv=None):
         outputs.close()
     if not args.quiet:
         print(f"done at step {int(state.step[0]) - 1}")
+    return 0
+
+
+def run_lattice(args, device) -> int:
+    """Lattice-engine run (BASELINE configs 2/3): occupancy-grid diffusion-
+    reaction with species histogram + MSD time series, in whole chunks of
+    --out-every steps.  The card runs K3, the CPU the plain version."""
+    from kmc_tpu_torch.config import LatticeConfig
+    from kmc_tpu_torch.lattice.grid import init_lattice
+    from kmc_tpu_torch.lattice.io import LatticeOutputSet, load_lattice
+    from kmc_tpu_torch.lattice.step import make_lattice_chunk
+    from kmc_tpu_torch.ops.lattice import make_pallas_lattice_chunk
+
+    lcfg = LatticeConfig.from_dict(
+        coerce(LatticeConfig().to_dict(), parse_overrides(args.sets)))
+    out_every = args.out_every or 1000
+    ckpt = os.path.join(args.out, "lattice_checkpoint.npz")
+    state = None
+    if args.resume in ("auto", "native") and os.path.exists(ckpt):
+        state = load_lattice(ckpt, device)
+        print(f"resuming lattice from {ckpt} at step {int(state.step)}")
+    fresh = state is None
+    if fresh:
+        state = init_lattice(lcfg, seed=args.seed, device=device)
+
+    make_chunk = (make_pallas_lattice_chunk if device.type == "cuda"
+                  else make_lattice_chunk)
+    chunk = make_chunk(lcfg, out_every)
+    outputs = LatticeOutputSet(args.out, lcfg, fresh=fresh)
+    n_steps = args.steps if args.steps is not None else 100_000
+    t0 = time.perf_counter()
+    done = 0
+    while done < n_steps:
+        state = chunk(state)
+        done += out_every
+        outputs(state)
+        if not args.quiet:
+            rate = done / max(time.perf_counter() - t0, 1e-9)
+            print(f"lattice step {int(state.step)}  rate={rate:,.0f} "
+                  "steps/s", file=sys.stderr)
+    if not args.quiet:
+        print(f"done at lattice step {int(state.step)}")
     return 0
 
 

@@ -1,8 +1,10 @@
-"""Configuration of the particle engine (``SimConfig``).
+"""Configuration of the particle engine (``SimConfig``) and of the lattice
+engine (``LatticeConfig``).
 
-A copy of ``kmc_tpu.config.SimConfig``: same field names, defaults and
-derived properties, so a configuration means the same thing in both
-packages (tests/test_torch_config_geometry.py holds the two equal).  The
+Copies of ``kmc_tpu.config.SimConfig`` and ``LatticeConfig``: same field
+names, defaults and derived properties, so a configuration means the same
+thing in both packages (tests/test_torch_config_geometry.py and
+tests/test_torch_lattice.py hold the two equal).  The
 port keeps its own copy because importing anything from ``kmc_tpu`` pulls
 in JAX.  Fields that name TPU knobs (``fused_align``) keep their meaning:
 ``fused_align=True`` runs the idealize core as the fused kernel
@@ -155,6 +157,32 @@ class SimConfig:
     def save_json(self, path: str) -> None:
         with open(path, "w") as f:
             json.dump(self.to_dict(), f, indent=2)
+
+
+@dataclasses.dataclass(frozen=True)
+class LatticeConfig:
+    """Lattice diffusion-reaction engine configuration (BASELINE configs
+    2/5): a 2D periodic occupancy grid with on-site association and
+    dissociation, the scalable analogue of the particle engine."""
+
+    height: int = 512
+    width: int = 512
+    n_species: int = 3                 # 0 empty, 1 monomer, 2 dimer (extendable)
+    hop_prob: float = 0.25             # per-step hop attempt probability
+    ass_prob: float = 0.1              # neighbor monomer+monomer -> dimer
+    diss_prob: float = 0.001           # dimer -> 2 monomers
+    density: float = 0.04              # initial monomer fill fraction
+
+    def replace(self, **kw: Any) -> "LatticeConfig":
+        return dataclasses.replace(self, **kw)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "LatticeConfig":
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in fields})
 
 
 # Reference-default singleton.

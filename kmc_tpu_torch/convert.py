@@ -3,7 +3,8 @@
 The JAX package's ``SimState`` travels as a dict of numpy arrays, with the
 key given as ``jax.random.key_data(key)`` (uint32[..., 2]); this module
 turns it into the port's ``SimState`` (leading replica axis, int64 key
-words) and back.  It imports neither package's JAX code: the caller
+words) and back.  A ``LatticeState`` travels the same way, field for field
+(the lattice engine has no weights; its state is all it carries).  It imports neither package's JAX code: the caller
 produces and consumes the numpy dict, so the port stays free of JAX.
 """
 
@@ -12,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from kmc_tpu_torch.lattice.grid import LatticeState
 from kmc_tpu_torch.state import SimState
 
 _FLOAT = ("a_xy", "a_psi", "b_center", "b_quat")
@@ -52,3 +54,22 @@ def to_numpy(state: SimState, batched: bool = True) -> dict:
             x = x[0]
         out[name] = x
     return out
+
+
+_LATTICE_DTYPES = {"grid": np.int32, "disp": np.int32, "step": np.int32,
+                   "seed": np.int32, "time": np.float32}
+
+
+def lattice_from_numpy(fields: dict, device="cpu") -> LatticeState:
+    """Port lattice state from a dict of numpy arrays (the JAX
+    LatticeState's fields)."""
+    return LatticeState(**{
+        name: torch.from_numpy(np.array(fields[name], dtype=dtype,
+                                        order="C")).to(device)
+        for name, dtype in _LATTICE_DTYPES.items()})
+
+
+def lattice_to_numpy(state: LatticeState) -> dict:
+    """Dict of numpy arrays with the JAX LatticeState's dtypes."""
+    return {name: getattr(state, name).detach().cpu().numpy()
+            for name in LatticeState._fields}

@@ -99,6 +99,20 @@ def uniform(key: torch.Tensor, shape) -> torch.Tensor:
     return fbits.to(torch.int32).view(torch.float32) - 1.0
 
 
+def permutation(key: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``jax.random.permutation(key, x)`` for a 1-D ``x``: JAX's
+    ``_shuffle``, ceil(3 ln n / ln(2^32 - 1)) rounds, each a ``split``, then
+    32-bit ``bits`` as sort keys and a stable sort of ``x`` by them."""
+    n = x.shape[0]
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    for _ in range(rounds):
+        key, sub = split(key).unbind(-2)
+        order = torch.sort(bits(sub, (n,)), stable=True).indices
+        x = x[order]
+    return x
+
+
 def base_key(seed: int, device=None):
     return key_from_seed(seed, device)
 

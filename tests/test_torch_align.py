@@ -213,7 +213,7 @@ def test_source_hash_covers_sources():
     assert len(h) == 16 and h == build.source_hash()
     assert any(p.endswith("align_batched.cu") for p in build._sources())
     # one library per kernel source; the shared header is hashed too
-    assert build.kernel_names() == ["align", "align_batched"]
+    assert build.kernel_names() == ["align", "align_batched", "lattice"]
     assert any(p.endswith("align_core.cuh") for p in build._sources())
 
 

@@ -8,6 +8,11 @@ parameter.log must be byte-identical, and the numbers of test.gro and
 position.cpt must agree within their printed precision (one unit in the
 last printed digit: the two packages' poses agree to float32 rounding,
 not bitwise, after 40 free-running steps).
+
+The lattice engine (``--engine lattice``) at 64^2, 200 steps, output every
+50: lattice.dat byte-identical and the checkpoints equal, before and after
+a resume.  Its rejection-free mode (``--lattice-rf``) is not ported and is
+refused.
 """
 
 import os
@@ -142,19 +147,77 @@ def test_cli_bad_value_and_unknown_key(tmp_path):
 @pytest.mark.parametrize("flag", [["--engine", "lattice"],
                                   ["--lattice-pallas"], ["--lattice-rf"]])
 def test_cli_lattice_not_ported(tmp_path, flag):
+    """The rejection-free mode is refused, whatever other lattice flags
+    come with it."""
     with pytest.raises(SystemExit) as e:
         tcli.main(["--steps", "1", "--out", str(tmp_path), *flag,
-                   "--device", "cpu"])
-    assert "not ported" in str(e.value)
+                   "--lattice-rf", "--device", "cpu"])
+    assert "not ported" in str(e.value) and "--lattice-rf" in str(e.value)
     assert not os.listdir(tmp_path)                # nothing else ran
 
 
 def test_cli_module_entry_point(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "kmc_tpu_torch.cli", "--engine", "lattice",
-         "--out", str(tmp_path)], cwd=REPO, capture_output=True, text=True,
-        timeout=120)
+         "--lattice-rf", "--out", str(tmp_path)], cwd=REPO,
+        capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and "not ported" in proc.stderr
+
+
+def _lattice_args(out, *extra):
+    return ["--engine", "lattice", "--out", str(out), "--seed", "1",
+            "--quiet", "--out-every", "50", "--set", "height=64",
+            "--set", "width=64", "--set", "density=0.15",
+            "--set", "ass_prob=0.3", "--set", "diss_prob=0.1", *extra]
+
+
+def _assert_same_lattice_ckpt(jd, td):
+    j = np.load(os.path.join(jd, "lattice_checkpoint.npz"))
+    t = np.load(os.path.join(td, "lattice_checkpoint.npz"))
+    assert sorted(t.files) == sorted(j.files)
+    for k in j.files:
+        assert t[k].dtype == j[k].dtype and t[k].shape == j[k].shape, k
+        np.testing.assert_array_equal(t[k], j[k], err_msg=k)
+
+
+@pytest.mark.parametrize("pallas", [[], ["--lattice-pallas"]],
+                         ids=["xla", "pallas_flag"])
+def test_cli_lattice_matches(tmp_path, capsys, pallas):
+    """64^2, 200 steps in chunks of 50, then a resume of 100: the same
+    files as kmc_tpu.cli's XLA step.  On the CPU the port runs the plain
+    version, with or without --lattice-pallas."""
+    jd, td = tmp_path / "jax", tmp_path / "port"
+    assert jcli.main(["--steps", "200", *_lattice_args(jd),
+                      "--platform", "cpu"]) == 0
+    assert tcli.main(["--steps", "200", *_lattice_args(td, *pallas),
+                      "--device", "cpu"]) == 0
+    assert _read(td / "lattice.dat") == _read(jd / "lattice.dat")
+    rows = _read(td / "lattice.dat").decode().splitlines()
+    assert [int(r.split()[0]) for r in rows] == [50, 100, 150, 200]
+    assert len({r.split()[1] for r in rows}) == 1      # mass conserved
+    _assert_same_lattice_ckpt(jd, td)
+
+    capsys.readouterr()
+    assert jcli.main(["--steps", "100", *_lattice_args(jd),
+                      "--platform", "cpu"]) == 0
+    assert tcli.main(["--steps", "100", *_lattice_args(td, *pallas),
+                      "--device", "cpu"]) == 0
+    said = capsys.readouterr().out
+    assert said.count("resuming lattice from") == 2 and "at step 200" in said
+    assert _read(td / "lattice.dat") == _read(jd / "lattice.dat")
+    assert _read(td / "lattice.dat").decode().splitlines()[-1].startswith(
+        "300 ")
+    _assert_same_lattice_ckpt(jd, td)
+
+
+def test_cli_lattice_defaults_to_cuda(tmp_path):
+    argv = ["--steps", "50", *_lattice_args(tmp_path)]
+    if torch.cuda.is_available():
+        assert tcli.main(argv) == 0
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tcli.main(argv)
+        assert not os.path.exists(tmp_path / "lattice.dat")
 
 
 def test_cli_defaults_to_cuda(tmp_path):

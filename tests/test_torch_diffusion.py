@@ -67,10 +67,15 @@ def test_mobility_and_collisions_bitwise(small_cfg):
 
 
 @pytest.mark.parametrize("step", [1, 5, 77])
-@pytest.mark.parametrize("rule", ["sweep", "sweep_exact", "symmetric"])
+@pytest.mark.parametrize("rule", ["sweep", "sweep_exact", "symmetric",
+                                  "sweep_sin_theta", "symmetric_sin_theta"])
 def test_diffuse_matches(small_cfg, step, rule):
-    cfg = small_cfg.replace(sweep_collisions=rule != "symmetric",
-                            sweep_exact_cleanup=rule == "sweep_exact")
+    """The ``*_sin_theta`` rules also draw the free ligands' 3D direction
+    with cos(theta) uniform (``sin_weighted_theta=True``)."""
+    cfg = small_cfg.replace(
+        sweep_collisions=not rule.startswith("symmetric"),
+        sweep_exact_cleanup=rule == "sweep_exact",
+        sin_weighted_theta=rule.endswith("sin_theta"))
     tcfg = port_cfg(cfg)
     states, ts = bonded_batch(cfg)
     skey = trng.stream_key(trng.step_key(ts.key, step), trng.STREAM_MOVE)

@@ -123,7 +123,10 @@ def test_port_imports_no_jax():
             "kmc_tpu_torch.cli, kmc_tpu_torch.engine.step, "
             "kmc_tpu_torch.ops.align, kmc_tpu_torch.io.checkpoint, "
             "kmc_tpu_torch.io.native, kmc_tpu_torch.io.writers, "
-            "kmc_tpu_torch.utils.checks, kmc_tpu_torch.testing; "
+            "kmc_tpu_torch.utils.checks, kmc_tpu_torch.testing, "
+            "kmc_tpu_torch.ops.hashing, kmc_tpu_torch.ops.lattice, "
+            "kmc_tpu_torch.lattice.grid, kmc_tpu_torch.lattice.step, "
+            "kmc_tpu_torch.lattice.io, kmc_tpu_torch.lattice.mapping; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'kmc_tpu' or "
             "m.startswith('kmc_tpu.')]; print(bad); "
@@ -146,6 +149,13 @@ def test_entry_points_default_to_cuda():
     st = kmc_tpu_torch.init_ensemble(cfg, 2, seed=0, device="cpu")
     with pytest.raises((RuntimeError, ValueError)):
         kmc_tpu_torch.lazy_ensemble_step(st, cfg, 2)       # defaults to cuda
+    lcfg = kmc_tpu_torch.LatticeConfig(height=8, width=8)
+    if torch.cuda.is_available():
+        assert kmc_tpu_torch.init_lattice(lcfg, seed=0).grid.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            kmc_tpu_torch.init_lattice(lcfg, seed=0)
+    assert not kmc_tpu_torch.init_lattice(lcfg, device="cpu").grid.is_cuda
 
 
 @pytest.mark.parametrize("seed", [0, 3])

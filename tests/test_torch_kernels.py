@@ -8,17 +8,22 @@ where JAX is not installed:
         tests/test_torch_kernels.py
 
 Tolerances: K1 positions 1e-4 A, directions and quaternions 1e-5,
-integer codes exact; K2 to the bit.  The kernels are built with
--fmad=false and round each operation as their plain versions do.
+integer codes exact; K2 and K3 (the lattice step) to the bit.  The
+kernels are built with -fmad=false and round each operation as their
+plain versions do.
 """
 
 import pytest
 import torch
 
-from kmc_tpu_torch import SimConfig, init_state, lazy_ensemble_step, step_fn
+from kmc_tpu_torch import (LatticeConfig, SimConfig, init_lattice,
+                           init_state, lazy_ensemble_step, step_fn)
 from kmc_tpu_torch import convert
+from kmc_tpu_torch.lattice.step import (lattice_step, lattice_step_arrays,
+                                        step_variant)
 from kmc_tpu_torch.ops import align as k2
 from kmc_tpu_torch.ops import align_batched
+from kmc_tpu_torch.ops import lattice as k3
 from kmc_tpu_torch.testing import (align_core_inputs,
                                    align_core_single_inputs, bonded_state)
 
@@ -198,3 +203,89 @@ def test_step_fn_on_card_matches_cpu():
         for f in want_obs._fields:
             assert torch.equal(getattr(obs, f).cpu(), getattr(want_obs, f))
     assert init_state(SMALL, 0).a_xy.is_cuda
+
+
+# ---------------------------------------------------------------------------
+# K3, the lattice step
+
+ALL_VARIANTS = {(h, r) for h in range(2) for r in range(4)}
+DENSE = dict(density=0.15, ass_prob=0.3, diss_prob=0.1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(64, 64), (48, 48), (64, 96), (512, 512)])
+def test_lattice_kernel_matches_plain(shape):
+    """K3 against lattice_step on the card, to the bit, every step, over
+    steps that cover all 8 (hop axis, reaction direction) variants."""
+    dev = _cuda()
+    cfg = LatticeConfig(height=shape[0], width=shape[1], **DENSE)
+    st = init_lattice(cfg, seed=11, device=dev)
+    seen = set()
+    for i in range(64):
+        seen.add(step_variant(st))
+        before = k3.lattice_block_call.launches
+        got = k3.pallas_lattice_step(st, cfg)
+        assert k3.lattice_block_call.launches == before + 1
+        want = lattice_step(st, cfg)
+        assert torch.equal(got.grid, want.grid), i
+        assert torch.equal(got.disp, want.disp), i
+        assert int(got.step) == i + 1 and float(got.time) == i + 1.0
+        st = got
+    assert seen == ALL_VARIANTS
+    assert int(st.grid.sum()) == int(init_lattice(cfg, seed=11,
+                                                  device=dev).grid.sum())
+
+
+@pytest.mark.gpu
+def test_lattice_kernel_offset_block_matches_plain():
+    """A block at a global origin of a larger grid, hashed and paired on
+    global coordinates, as a shard of a halo step would be."""
+    dev = _cuda()
+    cfg = LatticeConfig(height=128, width=128, **DENSE)
+    st = init_lattice(cfg.replace(height=40, width=72), seed=2, device=dev)
+    g, d = st.grid, st.disp
+    for i in range(16):
+        step = torch.tensor(i, dtype=torch.int32, device=dev)
+        got = k3.lattice_block_call(g, d, step, st.seed, cfg, -8, 100)
+        want = lattice_step_arrays(g, d, step, st.seed, cfg, -8, 100)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        g, d = got
+
+
+@pytest.mark.gpu
+def test_lattice_card_matches_cpu():
+    """K3 steps on the card equal the plain version on the CPU."""
+    dev = _cuda()
+    cfg = LatticeConfig(height=96, width=64, **DENSE)
+    st = init_lattice(cfg, seed=4, device=dev)
+    cpu = convert.lattice_from_numpy(convert.lattice_to_numpy(st))
+    chunk = k3.make_pallas_lattice_chunk(cfg, 10)
+    before = k3.lattice_block_call.launches
+    st = chunk(st)
+    assert k3.lattice_block_call.launches == before + 10
+    for _ in range(10):
+        cpu = lattice_step(cpu, cfg)
+    for f in cpu._fields:
+        assert torch.equal(getattr(st, f).cpu(), getattr(cpu, f)), f
+
+
+@pytest.mark.gpu
+def test_lattice_wrapper_raises_instead_of_falling_back():
+    dev = _cuda()
+    cfg = LatticeConfig(height=16, width=16)
+    st = init_lattice(cfg, seed=0, device=dev)
+    args = (st.grid, st.disp, st.step, st.seed)
+    for bad_shape in ((15, 16), (16, 9)):
+        with pytest.raises(ValueError, match="even"):
+            k3.lattice_block_call(
+                torch.zeros(bad_shape, dtype=torch.int32, device=dev),
+                torch.zeros((*bad_shape, 2), dtype=torch.int32, device=dev),
+                st.step, st.seed, cfg)
+    with pytest.raises(TypeError):
+        k3.lattice_block_call(args[0].long(), *args[1:], cfg)
+    with pytest.raises(ValueError):
+        k3.lattice_block_call(args[0], args[1], args[2].cpu(), args[3], cfg)
+    with pytest.raises(ValueError, match="contiguous"):
+        k3.lattice_block_call(args[0].t(), *args[1:], cfg)
+    with pytest.raises(ValueError):
+        k3.lattice_block_call(args[0], args[1][:8], *args[2:], cfg)

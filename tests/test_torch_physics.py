@@ -7,7 +7,10 @@ step counts and bounds:
   collision-rule settings;
 * tests/test_step.py::test_invariants_under_load: a dense box with
   boosted rates and widened gates, 8 chunks of 50 steps of the port's
-  step_fn, every invariant after each chunk (kmc_tpu_torch.utils.checks).
+  step_fn, every invariant after each chunk (kmc_tpu_torch.utils.checks);
+* tests/test_lattice.py: the lattice engine's mass conservation, exact
+  particle count, species cap and diffusion-only MSD per step against
+  hop_prob * (1 - density) within 15 %.
 
 The port runs on the CPU here.  This module imports no JAX.
 """
@@ -17,10 +20,13 @@ import pytest
 import torch
 
 from kmc_tpu_torch import rng
-from kmc_tpu_torch.config import SimConfig
+from kmc_tpu_torch.config import LatticeConfig, SimConfig
 from kmc_tpu_torch.engine.clusters import cluster_labels
 from kmc_tpu_torch.engine.diffusion import diffuse
 from kmc_tpu_torch.engine.step import make_chunk_fn
+from kmc_tpu_torch.lattice.grid import (MAX_SPECIES, init_lattice, msd,
+                                        particle_count)
+from kmc_tpu_torch.lattice.step import make_lattice_chunk
 from kmc_tpu_torch.state import init_state
 from kmc_tpu_torch.utils.checks import (assert_invariants,
                                         counters_consistent,
@@ -130,3 +136,44 @@ def test_checks_flag_broken_states(small_cfg):
     stacked = st._replace(a_xy=st.a_xy.clone())
     stacked.a_xy[0, 1] = stacked.a_xy[0, 0] + 5.0   # two receptors overlap
     assert not no_cross_cluster_overlap(stacked, cfg)[0]
+
+
+# ---------------------------------------------------------------------------
+# the lattice engine (tests/test_lattice.py's sizes, step counts, bounds)
+
+
+def test_lattice_mass_conservation():
+    cfg = LatticeConfig(height=64, width=64, density=0.1, ass_prob=0.3,
+                        diss_prob=0.05)
+    st = init_lattice(cfg, seed=0, device="cpu")
+    n0 = int(particle_count(st))
+    st = make_lattice_chunk(cfg, 200)(st)
+    assert int(particle_count(st)) == n0
+    assert int(st.step) == 200 and float(st.time) == 200.0
+
+
+def test_lattice_exact_particle_count():
+    cfg = LatticeConfig(height=32, width=32)
+    st = init_lattice(cfg, seed=1, n_particles=100, device="cpu")
+    assert int(particle_count(st)) == 100
+
+
+def test_lattice_species_cap():
+    cfg = LatticeConfig(height=32, width=32, density=0.5, ass_prob=1.0,
+                        diss_prob=0.0)
+    st = init_lattice(cfg, seed=5, device="cpu")
+    st = make_lattice_chunk(cfg, 200)(st)
+    assert int(st.grid.max()) <= MAX_SPECIES
+
+
+def test_lattice_diffusion_only_msd():
+    """Signed two-pass hopping: every monomer attempts each step with its
+    own sign, so at low density MSD/step ~= hop_prob * (1 - density)."""
+    cfg = LatticeConfig(height=128, width=128, density=0.02, ass_prob=0.0,
+                        diss_prob=0.0, hop_prob=0.5)
+    st = init_lattice(cfg, seed=2, device="cpu")
+    n = 400
+    st = make_lattice_chunk(cfg, n)(st)
+    got = float(msd(st)) / n
+    want = cfg.hop_prob * (1 - cfg.density)
+    assert abs(got - want) / want < 0.15, (got, want)
