@@ -51,8 +51,10 @@ per phase with the seconds since start:
 13. lattice physics: BASELINE config 2 (the mapped receptor lattice at
     512^2, 10,000 particles, no reactions), 1,500 K3 steps; the MSD per
     step within 10 % of the reference's 2 D dt / 9;
-14. K3 timing: device time (torch.profiler) at 512^2 and 8192^2, a
-    wrapper call (CUDA events), the plain version, and the bound.
+14. K3 timing: device time (torch.profiler) at 512^2 and 8192^2
+    beside the first design's, a wrapper call (CUDA events), the plain
+    version, and the bound (bytes over 3.35 TB/s, integer operations over
+    16.7e12 a second).
 
 Each phase of a path sets every launch count to 0 before it runs the path
 and reads the counts just after.  The last three lines are one JSON
@@ -76,15 +78,23 @@ T0 = time.perf_counter()
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
-# H100 SXM 32-bit integer rate: 64 INT32 lanes a SM (half the float32
-# lanes), 132 SMs, 1.98 GHz, a multiply-add counted as two operations as
-# the float32 figure counts one: half of FP32_FLOPS
-INT32_OPS = 33.5e12
-# integer operations K3 needs a cell: the counter (2); four hash draws of
-# 23 each (2 adds, two avalanche rounds of 8, the re-key xor, 3 to form
-# the uniform, the compare), 3 more for the hop draw's scaling; 6 to form
-# the flags; about 10 in each of the four sub-passes
-LATTICE_OPS_PER_CELL = 2 + 4 * 23 + 3 + 6 + 4 * 10
+# H100 SXM 32-bit integer rate: 64 results a clock per SM for 32-bit
+# integer add, multiply, shift and logic (NVIDIA's arithmetic-instruction
+# throughput table, compute capability 9.0), 132 SMs, 1.98 GHz: 16.7e12
+# operations a second, a multiply counted as one, as LATTICE_OPS_PER_CELL
+# counts it
+INT32_OPS = 132 * 64 * 1.98e9
+# integer operations any design of K3 must do a cell: the counter (2); the
+# two hop draws, u_hop and u_sgn, 23 each (2 adds, two avalanche rounds
+# of 8, the re-key xor, 3 to form the uniform, the compare); 3 more for
+# the hop draw's scaling; 6 to form the flags; about 10 in each of the
+# four sub-passes.  The merge and split draws are made only where a pair
+# can react, on a small share of the cells, and are not counted
+LATTICE_OPS_PER_CELL = 2 + 2 * 23 + 3 + 6 + 4 * 10
+# K3's device time (us) at 512^2 and 8192^2 in its first design (a block
+# of 512 threads, runtime modulos and four hashes on every frame cell), on
+# an NVIDIA H100 80GB HBM3 at 700 W; logged beside this run's
+K3_FIRST_DESIGN_US = {512: 12.01, 8192: 2166.98}
 LATTICE_STEPS, LATTICE_BIG, LATTICE_BIG_STEPS = 64, 8192, 4
 LAT_CLI_STEPS, LAT_CLI_RESUME, LAT_CLI_OUT_EVERY = 2000, 1000, 500
 LAT_MSD_STEPS, LAT_MSD_PARTICLES, LAT_SPACING = 1500, 10_000, 20.0
@@ -569,7 +579,8 @@ def lattice_phases(dev):
         nbytes, ops = lattice_work(size, size)
         bound_ms, bound_by = bound(nbytes, ops, INT32_OPS)
         timing[size] = (k_ms, plain_ms, bound_ms, bound_by)
-        log("K3 timing", f"{size}^2: kernel {how}; wrapper call "
+        log("K3 timing", f"{size}^2: kernel {how} (first design "
+            f"{K3_FIRST_DESIGN_US[size]} us); wrapper call "
             f"{call_ms * 1e3:.2f} us (CUDA events); plain "
             f"{plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.3f} us by "
             f"{bound_by} ({nbytes} bytes, {ops} integer ops); kernel / "

@@ -13,36 +13,76 @@
 //   4. split along the same direction under the same mask.
 // The displacement (dy, dx) of each particle rides along.
 //
-// Design.  The TPU kernel resolved the direction at trace time (8 static
-// variants under lax.switch) and cut the grid into VMEM-sized tiles with
-// width-4 periodic ghosts.  Here one thread block owns a 32 x 32 tile and
-// loads it with a width-4 ghost frame (40 x 40 cells) of grid and disp
-// into shared memory, wrapping the global loads periodically.  It hashes
-// every frame cell on its wrapped global coordinate, then runs the four
-// sub-passes in shared memory (double-buffered, a barrier after each) and
-// writes only its interior.  Each sub-pass reads one neighbour on each
-// side, so after four of them the width-4 frame has absorbed all the
-// wrong values of its edge and the interior is exact.  The directions are
-// drawn on the device from the step and seed tensors (no host read-back);
-// the branch is uniform across the grid.  The kernel reads `step` and
-// never writes it: other blocks are still reading it.  Uniform draws and
-// comparisons are float32 as in the plain version; the hop draw is
-// multiplied by the float32 reciprocal of hop_prob, which is what XLA
-// makes of the JAX package's division by a constant.  Built without fast
-// math and with -fmad=false.
+// Tiles.  One block of 320 threads owns a 32 x 32 tile and loads it with a
+// width-4 ghost frame (40 x 40 cells) of grid and disp into shared memory,
+// wrapping periodically.  The directions are drawn on the device from the
+// step and seed tensors (no host read-back) and are uniform across the
+// grid.  The kernel reads `step` and never writes it: other blocks are
+// still reading it.
+//
+// Wrap tables.  At block start 80 threads fill four tables of 40 ints: the
+// block-wrapped frame row rb[fy] = floor_mod(by0 + fy, h) and column cb[fx],
+// and their hash coordinates rg[fy] = floor_mod(row0 + rb[fy], full_h) and
+// cg[fx].  These 160 entries are the only runtime modulos of the block.  A
+// frame cell's global index is rb[fy] * w + cb[fx], its hash counter
+// rg[fy] * full_w + cg[fx], its parity coordinate row0 + rb[fy] or
+// col0 + cb[fx].  The same code serves edge tiles, offset blocks, grids
+// smaller than a frame and sizes that are no multiple of 32.
+//
+// Ownership.  Thread t owns the frame cells c = k * 320 + t, k = 0..4, for
+// the whole step: 1,600 cells in five full rounds.  Each owned cell's
+// frame position is worked out once, as three bit masks: on the frame's
+// outer ring, in the tile, reaction parity on.  The step's directions are
+// linear offsets in the frame, +-(hy * 40 + hx) for the hops and
+// +-(ry * 40 + rx) for the reactions, so a sub-pass reads c +- off with no
+// division and no clamp.  No sub-pass computes or writes a ring cell: the
+// load writes the ring into both buffers and it stays so.
+//
+// The ring invariant.  Each logical sub-pass (hop +, hop -, merge, split)
+// reads one neighbour on each side, so it widens the border of wrong cells
+// by at most one: after the load only the values beyond the frame are
+// unknown, after sub-pass p the cells within p of the frame's edge may be
+// wrong.  The halo is 4, so after the four the tile is exact.  The last
+// sub-pass runs on the tile only and writes out_grid / out_disp to global
+// memory directly.
+//
+// Decide and apply.  Merge and split each run as a decide pass, which
+// stores one bit a cell, and an apply pass, with a barrier between:
+//   merge(c)  = g(c) > 0 && g(c+r) > 0 && g(c) + g(c+r) <= 8 && parity(c)
+//               && u_merge(c) < ass;   absorbed(c) = merge(c-r)
+//   split(c)  = g(c) >= 2 && g(c+r) == 0 && parity(c) && u_split(c) < diss;
+//               receives(c) = split(c-r)
+// so a cell hashes only its own counter (the hash is a pure function of
+// counter, step and salt: the bits are those of the plain version).  The
+// pair of passes still reads one neighbour on each side (the ring
+// invariant holds).  Load, two hops, four reaction passes: seven barriers.
+//
+// Where the hashes are drawn.  u_hop and u_sgn only where the loaded
+// value is > 0 (an empty cell attempts nothing); u_merge and u_split only
+// in the decide passes, where the occupancy and parity terms above hold.
+// Hop flags need no moved mask: a cell that wants to hop was occupied at
+// the load, so it received nothing in the + pass, and a cell wants one
+// sign only, so it did not move in the + pass if it wants the - one.
+//
+// Numbers.  Uniform draws and comparisons are float32 as in the plain
+// version; the hop draw is multiplied by the float32 reciprocal of
+// hop_prob, which is what XLA makes of the JAX package's division by a
+// constant.  Built without fast math and with -fmad=false.
 //
 // Block mode.  The C entry takes the block's global origin (row0, col0)
 // and the full grid size: the block wraps periodically onto itself, and
 // the hashes and the parity use global coordinates, as padded_block_call
 // does on the TPU.  The whole grid is row0 = col0 = 0 and full = block.
 //
-// Bound.  One read and one write of grid (int32) and disp (int32 x 2):
-// 12 bytes a cell each way, 24 in all.  At 512 x 512 that is 6,291,456 B,
-// 1.88 us at 3.35 TB/s; at 8192 x 8192 480.8 us.  The ~143 integer
-// operations a cell (four hashes of two avalanche rounds, the four
-// sub-passes) take 1.12 us at 512 x 512 at 33.5 Tops/s, so bytes bound K3.
-// The ghost frame re-reads (40/32)^2 = 1.56x the interior's bytes, mostly
-// from L2.
+// Bound.  One read and one write of grid (int32) and disp (int32 x 2): 24
+// bytes a cell, 6,291,456 B at 512 x 512, 1.878 us at 3.35 TB/s; 480.78 us
+// at 8192 x 8192.  The integer work any design must do a cell (the
+// counter, the two hop draws, the flags, four sub-passes: 97 operations)
+// takes 1.52 us and 389.2 us at 16.7e12 32-bit integer operations a
+// second (132 SMs x 64 lanes x 1.98 GHz), so bytes bound K3.  The ghost
+// frame re-reads (40/32)^2 = 1.56x the tile's bytes, mostly from L2.
+// ptxas (sm_90a, on the H100): 32 registers, 43,840 B of static shared
+// memory, no spill; 5 blocks fit an SM by shared memory.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -53,7 +93,9 @@ constexpr int TILE = 32;
 constexpr int HALO = 4;
 constexpr int FRAME_W = TILE + 2 * HALO;
 constexpr int FRAME = FRAME_W * FRAME_W;
-constexpr int THREADS = 512;
+constexpr int THREADS = 320;
+constexpr int CELLS = FRAME / THREADS;   // frame cells a thread owns
+static_assert(CELLS * THREADS == FRAME, "every round is full");
 constexpr int MAX_SPECIES = 8;
 
 constexpr uint32_t M1 = 0x2C1B3C6Du;
@@ -63,9 +105,8 @@ constexpr uint32_t SALT_P = 0x85EBCA77u;
 constexpr uint32_t SALT_CTRL = 0, SALT_HOP = 1, SALT_MERGE = 2,
                    SALT_SPLIT = 3, SALT_SIGN = 4;
 
-// flag bits of a frame cell, fixed for the whole step
-constexpr unsigned char WANT_POS = 1, WANT_NEG = 2, MERGE_OK = 4,
-                        SPLIT_OK = 8;
+// hop flags of a frame cell, fixed for the whole step
+constexpr unsigned char WANT_POS = 1, WANT_NEG = 2;
 
 struct LatticeArgs {
   int h, w;             // block size (the whole grid in whole-grid mode)
@@ -102,15 +143,6 @@ __device__ __forceinline__ int floor_mod(int a, int m) {
   return r < 0 ? r + m : r;
 }
 
-// frame index of (fy, fx) clamped to the frame: an edge cell reads itself
-// for a missing neighbour; its result is wrong and never reaches the
-// interior within the four sub-passes
-__device__ __forceinline__ int at(int fy, int fx) {
-  fy = min(max(fy, 0), FRAME_W - 1);
-  fx = min(max(fx, 0), FRAME_W - 1);
-  return fy * FRAME_W + fx;
-}
-
 __global__ void __launch_bounds__(THREADS)
 lattice_step_kernel(LatticeArgs a, const int* __restrict__ grid,
                     const int2* __restrict__ disp, const int* __restrict__ step_p,
@@ -118,8 +150,10 @@ lattice_step_kernel(LatticeArgs a, const int* __restrict__ grid,
                     int2* __restrict__ out_disp) {
   __shared__ int g[2][FRAME];
   __shared__ int2 d[2][FRAME];
-  __shared__ unsigned char mv[2][FRAME];
-  __shared__ unsigned char fl[FRAME];
+  __shared__ unsigned char bit[2][FRAME];   // merge, split decisions
+  __shared__ unsigned char fl[FRAME];       // hop flags
+  __shared__ int rb[FRAME_W], cb[FRAME_W];  // block-wrapped row / column
+  __shared__ int rg[FRAME_W], cg[FRAME_W];  // their hash coordinates
 
   const uint32_t step = static_cast<uint32_t>(*step_p);
   const uint32_t salt = static_cast<uint32_t>(*seed_p) * 16u;
@@ -137,104 +171,157 @@ lattice_step_kernel(LatticeArgs a, const int* __restrict__ grid,
   const int ry = (rct_dir == 1) - (rct_dir == 3);
   const int rx = (rct_dir == 0) - (rct_dir == 2);
   const bool rct_is_y = (rct_dir & 1) != 0;
+  const int hop_off = hy * FRAME_W + hx;    // frame-index offsets
+  const int rct_off = ry * FRAME_W + rx;
 
-  // ---- load the frame, draw its uniforms ----
-  const int by0 = blockIdx.y * TILE - HALO;
-  const int bx0 = blockIdx.x * TILE - HALO;
-  for (int c = threadIdx.x; c < FRAME; c += THREADS) {
-    const int by = floor_mod(by0 + c / FRAME_W, a.h);
-    const int bx = floor_mod(bx0 + c % FRAME_W, a.w);
+  // ---- wrap tables: the block's only runtime modulos ----
+  const int tid = threadIdx.x;
+  if (tid < FRAME_W) {
+    rb[tid] = floor_mod(static_cast<int>(blockIdx.y) * TILE - HALO + tid, a.h);
+    rg[tid] = floor_mod(a.row0 + rb[tid], a.full_h);
+  } else if (tid < 2 * FRAME_W) {
+    const int f = tid - FRAME_W;
+    cb[f] = floor_mod(static_cast<int>(blockIdx.x) * TILE - HALO + f, a.w);
+    cg[f] = floor_mod(a.col0 + cb[f], a.full_w);
+  }
+  __syncthreads();
+
+  // ---- load the owned cells; hop draws where a particle sits ----
+  unsigned ring = 0, inner = 0, par = 0;   // bit k: of owned cell k
+#pragma unroll
+  for (int k = 0; k < CELLS; ++k) {
+    const int c = k * THREADS + tid;
+    const int fy = c / FRAME_W, fx = c % FRAME_W;
+    const bool on_ring =
+        fy == 0 || fy == FRAME_W - 1 || fx == 0 || fx == FRAME_W - 1;
+    ring |= static_cast<unsigned>(on_ring) << k;
+    inner |= static_cast<unsigned>(fy >= HALO && fy < HALO + TILE &&
+                                   fx >= HALO && fx < HALO + TILE) << k;
+    const int by = rb[fy], bx = cb[fx];
+    const int pc = rct_is_y ? a.row0 + by : a.col0 + bx;
+    par |= static_cast<unsigned>((pc & 1) == par_off) << k;
     const int gi = by * a.w + bx;
     const int gv = grid[gi];
+    const int2 dv = disp[gi];
     g[0][c] = gv;
-    d[0][c] = disp[gi];
-    mv[0][c] = 0;
-    const int gy = floor_mod(a.row0 + by, a.full_h);
-    const int gx = floor_mod(a.col0 + bx, a.full_w);
-    const uint32_t counter =
-        static_cast<uint32_t>(gy) * static_cast<uint32_t>(a.full_w) +
-        static_cast<uint32_t>(gx);
-    const float u_hop =
-        to_uniform(hash_u32(counter, step, salt + SALT_HOP)) * a.inv_hop;
-    const float u_sgn = to_uniform(hash_u32(counter, step, salt + SALT_SIGN));
-    const float u_m = to_uniform(hash_u32(counter, step, salt + SALT_MERGE));
-    const float u_s = to_uniform(hash_u32(counter, step, salt + SALT_SPLIT));
-    const bool attempt =
-        gv > 0 && u_hop * static_cast<float>(max(gv, 1)) < 1.0f;
-    const bool pos = u_sgn < 0.5f;
-    const int pc = rct_is_y ? a.row0 + by : a.col0 + bx;
-    const bool parity = (pc & 1) == par_off;
-    fl[c] = (attempt && pos ? WANT_POS : 0) | (attempt && !pos ? WANT_NEG : 0) |
-            (parity && u_m < a.ass ? MERGE_OK : 0) |
-            (parity && u_s < a.diss ? SPLIT_OK : 0);
+    d[0][c] = dv;
+    if (on_ring) {   // no pass writes the ring: both buffers keep the load
+      g[1][c] = gv;
+      d[1][c] = dv;
+      bit[0][c] = 0;
+      bit[1][c] = 0;
+    }
+    unsigned char f = 0;
+    if (gv > 0) {
+      const uint32_t counter =
+          static_cast<uint32_t>(rg[fy]) * static_cast<uint32_t>(a.full_w) +
+          static_cast<uint32_t>(cg[fx]);
+      const float u_hop =
+          to_uniform(hash_u32(counter, step, salt + SALT_HOP)) * a.inv_hop;
+      if (u_hop * static_cast<float>(gv) < 1.0f) {
+        const float u_sgn =
+            to_uniform(hash_u32(counter, step, salt + SALT_SIGN));
+        f = u_sgn < 0.5f ? WANT_POS : WANT_NEG;
+      }
+    }
+    fl[c] = f;
   }
   __syncthreads();
 
   // ---- two signed hop passes (lattice/step.py _hop_pass) ----
+#pragma unroll
   for (int pass = 0; pass < 2; ++pass) {
     const int src = pass, dst = pass ^ 1;
+    const int off = pass == 0 ? hop_off : -hop_off;
     const int sy = pass == 0 ? hy : -hy, sx = pass == 0 ? hx : -hx;
     const unsigned char want = pass == 0 ? WANT_POS : WANT_NEG;
-    for (int c = threadIdx.x; c < FRAME; c += THREADS) {
-      const int fy = c / FRAME_W, fx = c % FRAME_W;
+#pragma unroll
+    for (int k = 0; k < CELLS; ++k) {
+      if (ring >> k & 1) continue;
+      const int c = k * THREADS + tid;
+      const int s = c - off;   // the cell that may move here
       const int gv = g[src][c];
-      const int nb = g[src][at(fy + sy, fx + sx)];
-      const bool move = gv > 0 && (fl[c] & want) && !mv[src][c] && nb == 0;
-      const int s = at(fy - sy, fx - sx);   // the cell that may move here
-      const int sg = g[src][s];
-      const bool in = sg > 0 && (fl[s] & want) && !mv[src][s] && gv == 0;
-      int2 dv = d[src][c];
-      if (move) dv = make_int2(0, 0);
-      if (in) {
+      if ((fl[c] & want) && g[src][c + off] == 0) {   // moves out
+        g[dst][c] = 0;
+        d[dst][c] = make_int2(0, 0);
+      } else if (gv == 0 && (fl[s] & want)) {         // receives
         const int2 sd = d[src][s];
-        dv = make_int2(sd.x + sy, sd.y + sx);
+        g[dst][c] = g[src][s];
+        d[dst][c] = make_int2(sd.x + sy, sd.y + sx);
+      } else {
+        g[dst][c] = gv;
+        d[dst][c] = d[src][c];
       }
-      g[dst][c] = (move ? 0 : gv) + (in ? sg : 0);
-      d[dst][c] = dv;
-      mv[dst][c] = (mv[src][c] && !move) || in;
     }
     __syncthreads();
   }
 
-  // ---- merge (lattice/step.py _react_substep), buffers 0 -> 1 ----
-  for (int c = threadIdx.x; c < FRAME; c += THREADS) {
-    const int fy = c / FRAME_W, fx = c % FRAME_W;
+  // ---- merge (lattice/step.py _react_substep): decide on buffer 0 ----
+#pragma unroll
+  for (int k = 0; k < CELLS; ++k) {
+    if (ring >> k & 1) continue;
+    const int c = k * THREADS + tid;
     const int gv = g[0][c];
-    const int nb = g[0][at(fy + ry, fx + rx)];
-    const bool merge =
-        gv > 0 && nb > 0 && gv + nb <= MAX_SPECIES && (fl[c] & MERGE_OK);
-    const int s = at(fy - ry, fx - rx);
-    const int sg = g[0][s];
-    const bool absorbed =
-        sg > 0 && gv > 0 && sg + gv <= MAX_SPECIES && (fl[s] & MERGE_OK);
-    g[1][c] = absorbed ? 0 : (merge ? gv + nb : gv);
-    d[1][c] = absorbed ? make_int2(0, 0) : d[0][c];
-  }
-  __syncthreads();
-
-  // ---- split, buffers 1 -> 0 ----
-  for (int c = threadIdx.x; c < FRAME; c += THREADS) {
-    const int fy = c / FRAME_W, fx = c % FRAME_W;
-    const int gv = g[1][c];
-    const int nb = g[1][at(fy + ry, fx + rx)];
-    const bool split = gv >= 2 && nb == 0 && (fl[c] & SPLIT_OK);
-    const int s = at(fy - ry, fx - rx);
-    const int sg = g[1][s];
-    const bool receives = sg >= 2 && gv == 0 && (fl[s] & SPLIT_OK);
-    g[0][c] = (split ? gv - 1 : gv) + (receives ? 1 : 0);
-    d[0][c] = receives ? d[1][s] : d[1][c];
-  }
-  __syncthreads();
-
-  // ---- write the interior ----
-  for (int c = threadIdx.x; c < TILE * TILE; c += THREADS) {
-    const int ty = c / TILE, tx = c % TILE;
-    const int by = blockIdx.y * TILE + ty, bx = blockIdx.x * TILE + tx;
-    if (by < a.h && bx < a.w) {
-      const int f = (ty + HALO) * FRAME_W + tx + HALO;
-      out_grid[by * a.w + bx] = g[0][f];
-      out_disp[by * a.w + bx] = d[0][f];
+    bool merge = false;
+    if (gv > 0 && (par >> k & 1)) {
+      const int nb = g[0][c + rct_off];
+      if (nb > 0 && gv + nb <= MAX_SPECIES) {
+        const int fy = c / FRAME_W, fx = c % FRAME_W;
+        const uint32_t counter =
+            static_cast<uint32_t>(rg[fy]) * static_cast<uint32_t>(a.full_w) +
+            static_cast<uint32_t>(cg[fx]);
+        merge = to_uniform(hash_u32(counter, step, salt + SALT_MERGE)) < a.ass;
+      }
     }
+    bit[0][c] = merge;
+  }
+  __syncthreads();
+
+  // ---- merge: apply, buffers 0 -> 1 ----
+#pragma unroll
+  for (int k = 0; k < CELLS; ++k) {
+    if (ring >> k & 1) continue;
+    const int c = k * THREADS + tid;
+    if (bit[0][c - rct_off]) {           // absorbed by its -r neighbour
+      g[1][c] = 0;
+      d[1][c] = make_int2(0, 0);
+    } else {
+      const int gv = g[0][c];
+      g[1][c] = bit[0][c] ? gv + g[0][c + rct_off] : gv;
+      d[1][c] = d[0][c];
+    }
+  }
+  __syncthreads();
+
+  // ---- split: decide on buffer 1 ----
+#pragma unroll
+  for (int k = 0; k < CELLS; ++k) {
+    if (ring >> k & 1) continue;
+    const int c = k * THREADS + tid;
+    bool split = false;
+    if (g[1][c] >= 2 && (par >> k & 1) && g[1][c + rct_off] == 0) {
+      const int fy = c / FRAME_W, fx = c % FRAME_W;
+      const uint32_t counter =
+          static_cast<uint32_t>(rg[fy]) * static_cast<uint32_t>(a.full_w) +
+          static_cast<uint32_t>(cg[fx]);
+      split = to_uniform(hash_u32(counter, step, salt + SALT_SPLIT)) < a.diss;
+    }
+    bit[1][c] = split;
+  }
+  __syncthreads();
+
+  // ---- split: apply on the tile, buffer 1 -> out_grid / out_disp ----
+#pragma unroll
+  for (int k = 0; k < CELLS; ++k) {
+    if (!(inner >> k & 1)) continue;
+    const int c = k * THREADS + tid;
+    const int by = static_cast<int>(blockIdx.y) * TILE + c / FRAME_W - HALO;
+    const int bx = static_cast<int>(blockIdx.x) * TILE + c % FRAME_W - HALO;
+    if (by >= a.h || bx >= a.w) continue;
+    const int s = c - rct_off;          // the cell that may eject into c
+    const bool receives = bit[1][s];
+    out_grid[by * a.w + bx] = g[1][c] - bit[1][c] + receives;
+    out_disp[by * a.w + bx] = receives ? d[1][s] : d[1][c];
   }
 }
 

@@ -210,17 +210,14 @@ def test_step_fn_on_card_matches_cpu():
 
 ALL_VARIANTS = {(h, r) for h in range(2) for r in range(4)}
 DENSE = dict(density=0.15, ass_prob=0.3, diss_prob=0.1)
+SATURATED = dict(density=0.5, ass_prob=0.9, diss_prob=0.5)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(64, 64), (48, 48), (64, 96), (512, 512)])
-def test_lattice_kernel_matches_plain(shape):
-    """K3 against lattice_step on the card, to the bit, every step, over
-    steps that cover all 8 (hop axis, reaction direction) variants."""
-    dev = _cuda()
-    cfg = LatticeConfig(height=shape[0], width=shape[1], **DENSE)
+def _assert_k3_matches_plain(cfg, dev):
+    """64 steps of K3 and of lattice_step from one state, equal to the bit
+    at every step, all 8 variants seen.  Returns the largest species."""
     st = init_lattice(cfg, seed=11, device=dev)
-    seen = set()
+    seen, top = set(), 0
     for i in range(64):
         seen.add(step_variant(st))
         before = k3.lattice_block_call.launches
@@ -230,10 +227,41 @@ def test_lattice_kernel_matches_plain(shape):
         assert torch.equal(got.grid, want.grid), i
         assert torch.equal(got.disp, want.disp), i
         assert int(got.step) == i + 1 and float(got.time) == i + 1.0
+        top = max(top, int(got.grid.max()))
         st = got
     assert seen == ALL_VARIANTS
     assert int(st.grid.sum()) == int(init_lattice(cfg, seed=11,
                                                   device=dev).grid.sum())
+    return top
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(64, 64), (48, 48), (64, 96), (512, 512)])
+def test_lattice_kernel_matches_plain(shape):
+    """K3 against lattice_step on the card, to the bit, every step, over
+    steps that cover all 8 (hop axis, reaction direction) variants."""
+    dev = _cuda()
+    _assert_k3_matches_plain(
+        LatticeConfig(height=shape[0], width=shape[1], **DENSE), dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("setting", [
+    # merge and split pairs on most cells: the lazily drawn hashes are
+    # read often, and species up to 8 form
+    dict(height=64, width=64, **SATURATED),
+    # fewer rows than one tile, a width that is no multiple of 32
+    dict(height=16, width=40, density=0.01),
+    # smaller than the 40 x 40 frame: the wrap tables wrap several times
+    dict(height=8, width=8, **SATURATED),
+], ids=["saturated_64x64", "sparse_16x40", "saturated_8x8"])
+def test_lattice_kernel_matches_plain_at_edge_settings(setting):
+    """K3 to the bit where its lazily drawn hashes, its wrap tables and
+    its edge tiles are all exercised, all 8 variants seen."""
+    dev = _cuda()
+    top = _assert_k3_matches_plain(LatticeConfig(**setting), dev)
+    if setting["density"] == SATURATED["density"]:
+        assert top >= 4                       # merges happened
 
 
 @pytest.mark.gpu
