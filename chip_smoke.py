@@ -12,11 +12,13 @@ per phase with the seconds since start:
 2. build: nvcc builds the kernels, one process per source, all at once
    (seconds, registers, shared memory);
 3. kernel vs plain: K1 (csrc/align_batched.cu) against its plain PyTorch
-   version on bonded replicas at the reference size (150 + 50 molecules),
-   B = 64 and 512, positions within 1e-4 A, directions and quaternions
-   within 1e-5, snap and b_laid codes exact; K2 (csrc/align.cu) against
-   its plain version on bonded single replicas of several seeds, to the
-   bit;
+   version at the reference size (150 + 50 molecules) on bonded replicas
+   (B = 64 and 512), on a mature state of the C++ reference
+   (tests/data/ref_position.cpt) broadcast to B = 64 and 512 with
+   distinct keys, and on a trans-only and a bond-free replica; K2
+   (csrc/align.cu) on bonded single replicas of several seeds, on the
+   mature state, trans-only and bond-free; all to the bit, each with the
+   passes its level loop runs;
 4. main path: init_ensemble(SimConfig(), 512, seed=0) on the card, then
    the lazy ensemble chunk with k_align = 64: 2 warm-up + 20 timed steps;
    K1 launches must equal the step count, K2 none; state finite and bonds
@@ -32,8 +34,12 @@ per phase with the seconds since start:
    state, for the lazy ensemble step and for the single-trajectory
    step_fn (topology, flags, keys bitwise; poses within 1e-4 A);
 8. K1 and K2 timing: each kernel's device time (torch.profiler) and a
-   wrapper call (CUDA events), beside the plain version and the bound
-   (bytes over 3.35 TB/s, operations over 67 TFLOP/s);
+   wrapper call (CUDA events), beside the plain version, the bound (bytes
+   over 3.35 TB/s, operations over 67 TFLOP/s) and the previous design's
+   time: K1 at B = 64 and 512, K2, each on the bonded and the mature-state
+   inputs; K2's device time by the passes its level loop runs; and the
+   device time of a one-element add_, the floor of a one-block launch on
+   this card;
 9. where the time goes: each stage of the step timed alone by CUDA
    events, and torch.profiler over one main-path step (device busy share,
    top kernels);
@@ -69,6 +75,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -95,6 +102,11 @@ LATTICE_OPS_PER_CELL = 2 + 2 * 23 + 3 + 6 + 4 * 10
 # of 512 threads, runtime modulos and four hashes on every frame cell), on
 # an NVIDIA H100 80GB HBM3 at 700 W; logged beside this run's
 K3_FIRST_DESIGN_US = {512: 12.01, 8192: 2166.98}
+# K1's (B = 64) and K2's device time (us) in their first design (align
+# depth rounds and snap sweeps in series, 42 barriers a call), on an
+# NVIDIA H100 80GB HBM3 at 700 W; logged beside this run's
+ALIGN_FIRST_DESIGN_US = {"K1": 6.90, "K2": 5.49}
+REF_CPT = os.path.join(REPO, "tests", "data", "ref_position.cpt")
 LATTICE_STEPS, LATTICE_BIG, LATTICE_BIG_STEPS = 64, 8192, 4
 LAT_CLI_STEPS, LAT_CLI_RESUME, LAT_CLI_OUT_EVERY = 2000, 1000, 500
 LAT_MSD_STEPS, LAT_MSD_PARTICLES, LAT_SPACING = 1500, 10_000, 20.0
@@ -103,6 +115,7 @@ REPLICAS, K_ALIGN, WARMUP, TIMED = 512, 64, 2, 20
 SINGLE_STEPS, SINGLE_RESUME, SINGLE_OUT_EVERY = 100, 150, 50
 ENS_STEPS, ENS_OUT_EVERY = 20, 10
 K2_SEEDS = (1, 2, 3, 4)
+PASS_DEPTHS = (1, 2, 4, 8, 12)   # seed 1 runs align_depth passes at each
 DEVICE = "cuda"
 CARD = ""          # nvidia-smi's "name, power.limit", set by the device phase
 
@@ -149,17 +162,93 @@ def compare_core(got, want, kernel="K1", exact=False):
     return worst
 
 
-def core_work(cfg, args, outs, b):
-    """(bytes, flops) the align core (K1 or K2) needs for these inputs of
-    ``b`` replicas: every input read once and every output written once;
-    flops counted for the molecules this data snaps (about 70 per receptor
-    seat, 40 per ligand re-seat or lay-down) plus the depth rounds'
-    compare-and-add per neighbour entry."""
+def core_work(cfg, args, outs, passes):
+    """(bytes, flops) the align core (K1 or K2) needs for these inputs:
+    every input read once and every output written once; flops counted
+    for the molecules this data snaps (about 70 per receptor seat, 40 per
+    ligand re-seat or lay-down) plus, in each of the passes each replica
+    runs (``passes``, from core_passes), the depth round's compare-and-add
+    per neighbour entry."""
     nbytes = sum(x.numel() * x.element_size() for x in (*args, *outs))
     snapped_a = int((outs[2] == 1).sum())
     laid_new = int(((outs[5] & 1) != args[8]).sum())
-    depth_ops = 2 * cfg.align_depth * b * (2 * cfg.n_a + 3 * cfg.n_b)
+    depth_ops = 2 * int(passes.sum()) * (2 * cfg.n_a + 3 * cfg.n_b)
     return nbytes, 70 * snapped_a + 40 * laid_new + depth_ops
+
+
+def as_batched(args2):
+    """K2's twelve inputs as K1's eleven at B = 1."""
+    return [a[:, 0][None] if i in (4, 5, 6, 8, 9, 10) else a[None]
+            for i, a in enumerate(args2[:-1])]
+
+
+def core_passes(args, cfg):
+    """The passes the align core's level loop runs on K1's inputs ``args``,
+    one per replica: BFS depth by min-propagation from the roots; the block
+    leaves after the first pass that reaches no molecule, or after
+    align_depth passes (csrc/align_core.cuh)."""
+    import torch
+
+    na, nb, inf = cfg.n_a, cfg.n_b, 30000
+    a_trans, a_cis, b_partner, is_root = args[4], args[6], args[7], args[9]
+    i_ab = torch.clamp(a_trans - na, 0, nb - 1).long()
+    i_ac = torch.clamp(a_cis, 0, na - 1).long()
+    i_bp = torch.clamp(b_partner, 0, na - 1).long()
+    depth = torch.where(is_root == 1, 0, inf)
+    passes = torch.full((depth.shape[0],), cfg.align_depth,
+                        device=depth.device)
+    done = torch.zeros_like(passes, dtype=torch.bool)
+    for d in range(1, cfg.align_depth + 1):
+        da, db = depth[:, :na], depth[:, na:]
+        nda = torch.minimum(da, torch.minimum(
+            torch.where(a_trans >= 0, db.gather(1, i_ab) + 1, inf),
+            torch.where(a_cis >= 0, da.gather(1, i_ac) + 1, inf)))
+        ndb = db
+        for c in range(3):
+            ndb = torch.minimum(ndb, torch.where(
+                b_partner[..., c] >= 0, da.gather(1, i_bp[..., c]) + 1, inf))
+        nd = torch.cat([nda, ndb], 1)
+        changed = (nd != depth).any(1)
+        passes = torch.where(~done & ~changed, d, passes)
+        done |= ~changed
+        depth = nd
+    return passes.cpu()
+
+
+def pass_summary(passes) -> str:
+    """'8' for one replica, else 'min-max (mean m)'."""
+    if passes.numel() == 1:
+        return str(int(passes[0]))
+    return (f"{int(passes.min())}-{int(passes.max())} (mean "
+            f"{float(passes.float().mean()):.2f})")
+
+
+def strip_bonds(st, keep_trans):
+    """``st`` without its cis bonds, and without every bond unless
+    ``keep_trans``: the shallow topologies (2 passes and 1)."""
+    import torch
+
+    none = torch.full_like
+    st = st._replace(a_cis=none(st.a_cis, -1))
+    if keep_trans:
+        return st
+    return st._replace(a_trans=none(st.a_trans, -1),
+                       a_site=none(st.a_site, -1),
+                       b_partner=none(st.b_partner, -1))
+
+
+def ptxas_frames(report: str) -> list[str]:
+    """'name: N bytes stack frame, N bytes spill stores, N bytes spill
+    loads' for each kernel of an -Xptxas -v report."""
+    lines, name = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        elif "bytes stack frame" in line and name is not None:
+            lines.append(f"{name}: {line.strip()}")
+            name = None
+    return lines
 
 
 def cuda_time_ms(fn, iters, warmup=3):
@@ -371,21 +460,28 @@ def check_against_cpu(step, ref, dev, what):
     return worst
 
 
-def time_kernel(wrapper, plain, args, kernel_symbol, calls=500):
-    """(kernel ms, wrapper-call ms, plain ms, how) for one kernel."""
-    call_ms = cuda_time_ms(lambda: wrapper(*args), iters=calls)
-    plain_ms = cuda_time_ms(lambda: plain(*args), iters=20)
-
+def device_ms(wrapper, args, kernel_symbol):
+    """(device ms a launch, launches the profiler kept) of the kernel
+    named ``kernel_symbol`` over 200 calls of ``wrapper``; (None, 0) if
+    the profiler saw no such kernel."""
     def loop():
         for _ in range(200):
             wrapper(*args)
 
     rows, _ = profile_kernels(loop)
     mine = [r for r in rows if kernel_symbol in r[0]]
-    if mine:
-        k_ms = mine[0][1] / 1e3 / mine[0][2]
-        how = f"device time {k_ms * 1e3:.2f} us (profiler, {mine[0][2]} " \
-              "launches)"
+    if not mine:
+        return None, 0
+    return mine[0][1] / 1e3 / mine[0][2], mine[0][2]
+
+
+def time_kernel(wrapper, plain, args, kernel_symbol, calls=500):
+    """(kernel ms, wrapper-call ms, plain ms, how) for one kernel."""
+    call_ms = cuda_time_ms(lambda: wrapper(*args), iters=calls)
+    plain_ms = cuda_time_ms(lambda: plain(*args), iters=20)
+    k_ms, n = device_ms(wrapper, args, kernel_symbol)
+    if k_ms is not None:
+        how = f"device time {k_ms * 1e3:.2f} us (profiler, {n} launches)"
     else:
         k_ms = call_ms
         how = "device time not measured (profiler saw no kernel); " \
@@ -629,8 +725,10 @@ def main() -> int:
     sys.path.insert(0, REPO)
     import kmc_tpu_torch
     from kmc_tpu_torch import SimConfig
+    from kmc_tpu_torch.io.checkpoint import load_reference_cpt
     from kmc_tpu_torch.ops import align as k2_ops
     from kmc_tpu_torch.ops import align_batched, build
+    from kmc_tpu_torch.parallel.ensemble import broadcast_ensemble
     from kmc_tpu_torch.testing import (align_core_inputs,
                                        align_core_single_inputs,
                                        bonded_state)
@@ -655,6 +753,7 @@ def main() -> int:
         f"in parallel (reused={info.reused}) -> "
         + ", ".join(os.path.relpath(p, REPO) for p in info.paths.values())
         + "; " + "; ".join(build.ptxas_summary(info.ptxas)))
+    log("build", "ptxas frames: " + "; ".join(ptxas_frames(info.ptxas)))
     cfg = SimConfig()
     smem = build.library("align_batched").kmc_align_batched_smem(cfg.n_a,
                                                                  cfg.n_b)
@@ -663,36 +762,53 @@ def main() -> int:
         f"{smem2} bytes (dynamic)")
 
     # ---- 3. K1 and K2 against their plain versions at the reference size
-    max_err = 0.0
-    k1_inputs = None
-    for batch in (K_ALIGN, REPLICAS):
-        st = bonded_state(cfg, batch, seed=batch, device=dev)
+    mature = load_reference_cpt(REF_CPT, cfg, seed=0, device=dev)
+    bonded3 = bonded_state(cfg, 1, seed=3, device=dev)
+    k1_sets = {
+        f"bonded B={K_ALIGN}": bonded_state(cfg, K_ALIGN, seed=K_ALIGN,
+                                            device=dev),
+        f"bonded B={REPLICAS}": bonded_state(cfg, REPLICAS, seed=REPLICAS,
+                                             device=dev),
+        f"mature B={K_ALIGN}": broadcast_ensemble(mature, K_ALIGN, seed=0),
+        f"mature B={REPLICAS}": broadcast_ensemble(mature, REPLICAS, seed=0),
+        "trans-only B=1": strip_bonds(bonded3, keep_trans=True),
+        "bond-free B=1": strip_bonds(bonded3, keep_trans=False),
+    }
+    max_err, k1_inputs = 0.0, {}
+    for what, st in k1_sets.items():
         args = align_core_inputs(st, cfg)
         got = k1(*args, cfg)
         torch.cuda.synchronize()
         want = align_batched.align_core_batched_plain(*args, cfg)
-        err = compare_core(got, want)
-        max_err = max(max_err, err)
+        max_err = max(max_err, compare_core(got, want, f"K1 {what}",
+                                            exact=True))
+        passes = core_passes(args, cfg)
         snapped = int((got[2] == 1).sum())
         unreached = int((got[2] == 2).sum()) + int((got[5] >= 2).sum())
-        log("kernel vs plain", f"K1 B={batch}: max abs err {err:.3g} "
-            f"(tol {POS_TOL} A / {ANG_TOL}); receptors snapped {snapped}, "
-            f"unreached markers {unreached}; snap/b_laid exact")
-        if batch == K_ALIGN:
-            k1_inputs = (args, got)
-    k2_err, k2_inputs = 0.0, None
-    for seed in K2_SEEDS:
-        args = align_core_single_inputs(
-            bonded_state(cfg, 1, seed=seed, device=dev), cfg)
+        log("kernel vs plain", f"K1 {what}: bitwise equal; passes "
+            f"{pass_summary(passes)}; receptors snapped {snapped}, "
+            f"unreached markers {unreached}")
+        k1_inputs[what] = (args, got, passes)
+    k2_sets = {f"bonded seed {seed}": bonded_state(cfg, 1, seed=seed,
+                                                   device=dev)
+               for seed in K2_SEEDS}
+    k2_sets.update({"mature": mature,
+                    "trans-only": strip_bonds(bonded3, keep_trans=True),
+                    "bond-free": strip_bonds(bonded3, keep_trans=False)})
+    k2_err, k2_inputs = 0.0, {}
+    for what, st in k2_sets.items():
+        args = align_core_single_inputs(st, cfg)
         got = k2(*args, cfg)
         torch.cuda.synchronize()
         want = k2_ops.align_core_single_plain(*args, cfg)
-        k2_err = max(k2_err, compare_core(got, want, "K2", exact=True))
-        log("kernel vs plain", f"K2 seed {seed}: bitwise equal; receptors "
-            f"snapped {int((got[2] == 1).sum())}, unreached markers "
+        k2_err = max(k2_err, compare_core(got, want, f"K2 {what}",
+                                          exact=True))
+        passes = core_passes(as_batched(args), cfg)
+        log("kernel vs plain", f"K2 {what}: bitwise equal; passes "
+            f"{pass_summary(passes)}; receptors snapped "
+            f"{int((got[2] == 1).sum())}, unreached markers "
             f"{int((got[2] == 2).sum()) + int((got[5] >= 2).sum())}")
-        if k2_inputs is None:
-            k2_inputs = (args, got)
+        k2_inputs[what] = (args, got, passes)
 
     # ---- 4. the main path ----
     t = time.perf_counter()
@@ -764,28 +880,66 @@ def main() -> int:
         f"poses max abs diff {worst:.3g} A")
 
     # ---- 8. K1 and K2 timing ----
-    args, outs = k1_inputs
-    k1_ms, call_ms, plain_ms, how = time_kernel(
-        lambda *a: k1(*a, cfg),
-        lambda *a: align_batched.align_core_batched_plain(*a, cfg), args,
-        "align_batched_kernel")
-    nbytes, flops = core_work(cfg, args, outs, args[0].shape[0])
-    bound_ms, bound_by = bound(nbytes, flops)
-    log("K1 timing", f"B={K_ALIGN}: kernel {how}; wrapper call "
-        f"{call_ms * 1e3:.2f} us (CUDA events, 500 calls); plain "
-        f"{plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.3f} us by "
-        f"{bound_by} ({nbytes} bytes, {flops} flops)")
-    args2, outs2 = k2_inputs
-    k2_ms, call2_ms, plain2_ms, how2 = time_kernel(
-        lambda *a: k2(*a, cfg),
-        lambda *a: k2_ops.align_core_single_plain(*a, cfg), args2,
-        "align_single_kernel")
-    nbytes2, flops2 = core_work(cfg, args2, outs2, 1)
-    bound2_ms, bound2_by = bound(nbytes2, flops2)
-    log("K2 timing", f"one replica: kernel {how2}; wrapper call "
-        f"{call2_ms * 1e3:.2f} us (CUDA events, 500 calls); plain "
-        f"{plain2_ms * 1e3:.1f} us; bound {bound2_ms * 1e3:.4f} us by "
-        f"{bound2_by} ({nbytes2} bytes, {flops2} flops)")
+    x = torch.zeros(1, device=dev)
+    rows, _ = profile_kernels(lambda: [x.add_(1.0) for _ in range(200)])
+    if rows:
+        log("align timing", f"floor of a one-block launch: a one-element "
+            f"add_ takes {rows[0][1] / rows[0][2]:.2f} us of device time "
+            f"(profiler, {rows[0][2]} launches)")
+    else:
+        log("align timing", "floor of a one-block launch not measured "
+            "(the profiler recorded no CUDA kernel)")
+    timings = {}
+    for kernel, what, wrapper, plain, symbol, inputs in (
+            *(("K1", w, k1, align_batched.align_core_batched_plain,
+               "align_batched_kernel", k1_inputs[w])
+              for w in (f"bonded B={K_ALIGN}", f"mature B={K_ALIGN}",
+                        f"bonded B={REPLICAS}", f"mature B={REPLICAS}")),
+            *(("K2", w, k2, k2_ops.align_core_single_plain,
+               "align_single_kernel", k2_inputs[w])
+              for w in (f"bonded seed {K2_SEEDS[0]}", "mature"))):
+        args, outs, passes = inputs
+        k_ms, call_ms, plain_ms, how = time_kernel(
+            lambda *a, f=wrapper: f(*a, cfg),
+            lambda *a, f=plain: f(*a, cfg), args, symbol)
+        nbytes, flops = core_work(cfg, args, outs, passes)
+        bound_ms, bound_by = bound(nbytes, flops)
+        before = ""
+        if what in (f"bonded B={K_ALIGN}", f"bonded seed {K2_SEEDS[0]}"):
+            before = (f"; first design {ALIGN_FIRST_DESIGN_US[kernel]} us "
+                      "(NVIDIA H100 80GB HBM3, 700 W)")
+        log(f"{kernel} timing", f"{what} ({pass_summary(passes)} passes): "
+            f"kernel {how}{before}; wrapper call {call_ms * 1e3:.2f} us "
+            f"(CUDA events, 500 calls); plain {plain_ms * 1e3:.1f} us; "
+            f"bound {bound_ms * 1e3:.4f} us by {bound_by} ({nbytes} bytes, "
+            f"{flops} flops)")
+        timings[what] = (k_ms, plain_ms, bound_ms, bound_by)
+    # the cost of one pass: K2 on one bonded replica at several depths,
+    # where the level loop runs align_depth passes, and on a bond-free one
+    # (one pass that reaches nothing)
+    by_passes = []
+    for depth in PASS_DEPTHS:
+        c = cfg.replace(align_depth=depth)
+        args = align_core_single_inputs(
+            bonded_state(c, 1, seed=K2_SEEDS[0], device=dev), c)
+        k_ms, _ = device_ms(lambda *a, c=c: k2(*a, c), args,
+                            "align_single_kernel")
+        by_passes.append((int(core_passes(as_batched(args), c)[0]), k_ms))
+    free_ms, _ = device_ms(lambda *a: k2(*a, cfg), k2_inputs["bond-free"][0],
+                           "align_single_kernel")
+    if free_ms is not None and all(t is not None for _, t in by_passes):
+        (p0, t0), (p1, t1) = by_passes[0], by_passes[-1]
+        log("K2 timing", f"device time by passes (bonded seed {K2_SEEDS[0]}"
+            ", align_depth = passes): " + ", ".join(
+                f"{p} passes {t * 1e3:.2f} us" for p, t in by_passes)
+            + f", bond-free (1 pass) {free_ms * 1e3:.2f} us; "
+            f"{(t1 - t0) * 1e3 / (p1 - p0):.3f} us a pass")
+    else:
+        log("K2 timing", "device time by passes not measured (the "
+            "profiler saw no kernel)")
+    k1_ms, plain_ms, bound_ms, bound_by = timings[f"bonded B={K_ALIGN}"]
+    k2_ms, plain2_ms, bound2_ms, bound2_by = timings[
+        f"bonded seed {K2_SEEDS[0]}"]
 
     # ---- 9. where the time goes ----
     from kmc_tpu_torch import rng

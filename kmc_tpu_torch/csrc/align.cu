@@ -17,16 +17,20 @@
 // Design.  The TPU kernel gathers by one-hot [n, n] matrix products on the
 // MXU, because Mosaic has no dynamic gather.  Here one thread block holds
 // the replica, one thread per molecule, with its poses, depths and site
-// indices in shared memory and real indexed loads; a barrier separates
-// the reads and the writes of each of the align_depth depth rounds and
-// snap sweeps.  The body is K1's (align_core.cuh), so K1 at batch 1 and
-// K2 give the same bits.
+// indices in shared memory and real indexed loads, and runs one pass per
+// depth level with one barrier a pass, stopping at the deepest level
+// present (align_core.cuh states the invariant).  Each thread reads from
+// the template in device memory only the rows it uses (its own site row,
+// the three bead rows a ligand's parent may bind, bead 1 for a root
+// ligand); the by-value parameters are never written, so they stay in the
+// constant bank.  The body is K1's, so K1 at batch 1 and K2 give the same
+// bits.
 //
 // Bound.  At SimConfig() (150 + 50 molecules) one call reads 8,192 bytes
 // (the template included) and writes 4,600: 12.8 KB, about 0.004 us at
-// 3.35 TB/s.  One block of 224 threads runs 16 barrier-separated phases
-// on one SM, so the launch and the phases' latency bound it, not bytes or
-// flops.
+// 3.35 TB/s.  One block of 224 threads on one SM runs a chain of at most
+// align_depth + 1 barrier-separated phases, so the launch and the phases'
+// latency bound it, not bytes or flops.
 
 #include "align_core.cuh"
 
@@ -43,18 +47,10 @@ __global__ void align_single_kernel(
     float* __restrict__ o_a_dir, int* __restrict__ o_snap,
     float* __restrict__ o_b_center, float* __restrict__ o_b_quat,
     int* __restrict__ o_b_laid) {
-  // template rows: tmpl[j][0] = center of bead j, tmpl[j][1] = its site
-  for (int c = 0; c < 3; ++c) {
-    p.bead1[c] = tmpl[1 * 12 + c];
-    for (int j = 0; j < 3; ++j) {
-      p.bead[j][c] = tmpl[(j + 1) * 12 + c];
-      p.site[j][c] = tmpl[(j + 1) * 12 + 3 + c];
-    }
-  }
-  kmc_core::align_replica(p, 0, a_xy, a_dir, b_center, b_quat, a_trans,
-                          a_site, a_cis, b_partner, b_laid, is_root, act,
-                          o_a_xy, o_a_dir, o_snap, o_b_center, o_b_quat,
-                          o_b_laid);
+  kmc_core::align_replica(p, kmc_core::GlobalTemplate{tmpl}, 0, a_xy, a_dir,
+                          b_center, b_quat, a_trans, a_site, a_cis, b_partner,
+                          b_laid, is_root, act, o_a_xy, o_a_dir, o_snap,
+                          o_b_center, o_b_quat, o_b_laid);
 }
 
 }  // namespace
@@ -75,8 +71,7 @@ int kmc_align(const AlignParams* params, const float* tmpl, const float* a_xy,
               float* o_b_center, float* o_b_quat, int* o_b_laid,
               void* stream) {
   const AlignParams p = *params;
-  const int n = p.na + p.nb;
-  const int threads = ((n + 31) / 32) * 32;
+  const int threads = kmc_core::block_threads(p.na, p.nb);
   const int smem = kmc_core::smem_bytes(p.na, p.nb);
   align_single_kernel<<<1, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       p, tmpl, a_xy, a_dir, b_center, b_quat, a_trans, a_site, a_cis,

@@ -8,7 +8,8 @@ returns the snapped poses, the snap codes [na, 1] (0 no, 1 snapped,
 2 unreached) and the laid bits [nb, 1] (bit 0 laid, bit 1 unreached).  On
 a CUDA tensor it launches the hand-written kernel
 ``kmc_tpu_torch/csrc/align.cu`` (one thread block, one thread per
-molecule) and raises if the launch fails; on a CPU tensor it runs
+molecule, one pass per depth level; the plain version's bits) and raises
+if the launch fails; on a CPU tensor it runs
 ``align_core_single_plain``.  There is no fallback from the card to the
 plain version.
 

@@ -7,8 +7,10 @@ snapped poses: BFS depth by ``align_depth`` rounds of min-propagation,
 parent = first neighbour column at depth - 1, root-ligand lay-down, and
 ``align_depth`` snap sweeps (A<-B trans seat, A<-A cis seat, B<-A re-seat).
 On a CUDA tensor it launches the hand-written kernel
-``kmc_tpu_torch/csrc/align_batched.cu`` (one thread block per replica) and
-raises if the launch fails; on a CPU tensor it runs
+``kmc_tpu_torch/csrc/align_batched.cu`` (one thread block per replica,
+one pass per depth level, stopping at the deepest level present; the
+results are this module's plain version to the bit) and raises if the
+launch fails; on a CPU tensor it runs
 ``align_core_batched_plain``, the same arithmetic in plain tensor ops.
 There is no fallback from the card to the plain version.
 
@@ -223,7 +225,7 @@ def align_core_batched_plain(a_xy, a_dir, b_center, b_quat, a_trans, a_site,
 # The kernel's wrapper.
 
 class _Params(ctypes.Structure):
-    """Mirror of ``struct AlignParams`` in csrc/align_batched.cu."""
+    """Mirror of ``struct AlignParams`` in csrc/align_core.cuh."""
     _fields_ = [("na", ctypes.c_int), ("nb", ctypes.c_int),
                 ("depth", ctypes.c_int), ("ra", ctypes.c_float),
                 ("t_off0", ctypes.c_float), ("c_off0", ctypes.c_float),

@@ -16,6 +16,11 @@
   tests/test_pallas_align.py (loose trans, unlaid, merged complex, cis
   pair) and the bonded chain at the origin: the same tolerances.
 
+* A torch model of the CUDA kernels' level schedule (align_core.cuh: one
+  pass per depth level, parents from the previous round, both halves from
+  the pass's starting poses, early exit) against K1's plain version, to
+  the bit, with the passes each input needs.
+
 The CUDA kernels are held against their plain versions on the card by
 tests/test_torch_kernels.py.
 
@@ -25,6 +30,8 @@ float32 cancellation in its (site - bead) directions: for the long chain
 rooted at (330, 120) A instead of the origin, kmc_tpu's own fused and
 unfused idealize already differ by 2.4e-4 A.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -46,8 +53,11 @@ from kmc_tpu_torch import rng as trng
 from kmc_tpu_torch.engine.align import idealize as t_idealize
 from kmc_tpu_torch.engine.align import idealize_fused as t_idealize_fused
 from kmc_tpu_torch.engine.clusters import cluster_labels as t_labels
+from kmc_tpu_torch.config import SimConfig
+from kmc_tpu_torch.io.checkpoint import load_reference_cpt
 from kmc_tpu_torch.ops import align as k2
 from kmc_tpu_torch.ops import align_batched, build
+from kmc_tpu_torch.testing import align_core_inputs, bonded_state
 
 from test_torch_clusters import (BONDED_FIXTURES, jax_fields, long_chain,
                                  loose_cis, loose_trans, merged_complex,
@@ -321,3 +331,181 @@ def test_single_wrapper_cpu_route_and_checks(small_cfg):
     with pytest.raises(ValueError, match="one replica"):
         k2.align_core(st, st.b_laid.new_zeros((2, cfg.n)),
                       st.b_laid.new_zeros((2, cfg.n)), cfg)
+
+
+# ---------------------------------------------------------------------------
+# The kernels' level schedule (kmc_tpu_torch/csrc/align_core.cuh)
+
+REF_CPT = os.path.join(os.path.dirname(__file__), "data", "ref_position.cpt")
+
+
+def level_schedule(a_xy, a_dir, b_center, b_quat, a_trans, a_site, a_cis,
+                   b_partner, b_laid, is_root, act, cfg):
+    """align_core.cuh's schedule in tensor ops: the root lay-down first,
+    then one pass per depth level d that takes BFS round d, chooses a newly
+    reached molecule's parent from the round-(d-1) depths, and seats the
+    level-d receptors and ligands from the poses as they stood at the start
+    of the pass; a replica stops after the first pass that changes no
+    depth.  Returns K1's outputs and the passes each replica ran."""
+    ab = align_batched
+    na, nb, inf = cfg.n_a, cfg.n_b, ab._INF
+    k = ab._constants(cfg)
+
+    def g(x, idx):
+        return torch.gather(x, 1, idx)
+
+    a_x, a_y = a_xy[..., 0], a_xy[..., 1]
+    a_dx, a_dy = a_dir[..., 0], a_dir[..., 1]
+    b_cx, b_cy, b_cz = b_center.unbind(-1)
+    b_qw, b_qx, b_qy, b_qz = b_quat.unbind(-1)
+    bp = b_partner.unbind(-1)
+    ir_a, ir_b = is_root[:, :na] == 1, is_root[:, na:] == 1
+    act_a, act_b = act[:, :na] == 1, act[:, na:] == 1
+    i_ab = torch.clamp(a_trans - na, 0, nb - 1).long()
+    i_ac = torch.clamp(a_cis, 0, na - 1).long()
+    i_bp = [torch.clamp(x, 0, na - 1).long() for x in bp]
+    v_trans, v_cis, v_bp = a_trans >= 0, a_cis >= 0, [x >= 0 for x in bp]
+
+    # load phase: root-ligand lay-down
+    root_b = ir_b & act_b & (b_laid == 0)
+    tx, ty, tz = k["bead1"]
+    bdx, bdy = ab._rot_xy(b_qw, b_qx, b_qy, b_qz, tx, ty, tz)
+    qw0, qz0 = ab._quat_z_cs(tx * bdx + ty * bdy, tx * bdy - ty * bdx)
+    zero = torch.zeros_like(b_qw)
+    b_qw = torch.where(root_b, qw0, b_qw)
+    b_qx = torch.where(root_b, zero, b_qx)
+    b_qy = torch.where(root_b, zero, b_qy)
+    b_qz = torch.where(root_b, qz0, b_qz)
+    b_cz = torch.where(root_b, k["plane_z"], b_cz)
+    b_laid_new = torch.where(root_b, 1, b_laid)
+    sj = torch.clamp(a_site, 1, 3)
+    svx, svy, svz = (ab._pick3(sj, k["site"], c) for c in range(3))
+    bvx, bvy, bvz = (ab._pick3(sj, k["bead"], c) for c in range(3))
+
+    depth_a = torch.where(ir_a, 0.0, inf)
+    depth_b = torch.where(ir_b, 0.0, inf)
+    a_snap = torch.zeros_like(a_trans)
+    live = torch.ones(a_xy.shape[0], dtype=torch.bool)
+    passes = torch.zeros(a_xy.shape[0], dtype=torch.int64)
+    for d in range(1, cfg.align_depth + 1):
+        passes += live
+        # BFS round d and the parents, both from the round-(d-1) depths
+        pd_t = torch.where(v_trans, g(depth_b, i_ab), inf)
+        pd_c = torch.where(v_cis, g(depth_a, i_ac), inf)
+        pd_b = [torch.where(v_bp[c], g(depth_a, i_bp[c]), inf)
+                for c in range(3)]
+        nda = torch.minimum(depth_a, torch.minimum(
+            torch.where(v_trans, pd_t + 1.0, inf),
+            torch.where(v_cis, pd_c + 1.0, inf)))
+        ndb = depth_b
+        for c in range(3):
+            ndb = torch.minimum(ndb, torch.where(v_bp[c], pd_b[c] + 1.0, inf))
+        new_a = (nda != depth_a) & live[:, None]
+        new_b = (ndb != depth_b) & live[:, None]
+        from_trans = pd_t == d - 1.0
+        from_cis = ~from_trans & (pd_c == d - 1.0)
+        sel0 = pd_b[0] == d - 1.0
+        sel1 = ~sel0 & (pd_b[1] == d - 1.0)
+        sel2 = ~sel0 & ~sel1 & (pd_b[2] == d - 1.0)
+        parent_b = torch.where(sel0, bp[0], torch.where(
+            sel1, bp[1], torch.where(sel2, bp[2], -1)))
+        i_ba = torch.clamp(parent_b, 0, na - 1).long()
+
+        # level-d receptors from the pass's starting poses
+        sel_t = new_a & act_a & from_trans
+        sel_c = new_a & act_a & from_cis
+        qpw, qpx, qpy, qpz = (g(x, i_ab) for x in (b_qw, b_qx, b_qy, b_qz))
+        cpx, cpy = g(b_cx, i_ab), g(b_cy, i_ab)
+        sx, sy = ab._rot_xy(qpw, qpx, qpy, qpz, svx, svy, svz)
+        bx, by = ab._rot_xy(qpw, qpx, qpy, qpz, bvx, bvy, bvz)
+        bsx, bsy = cpx + sx, cpy + sy
+        utx = bsx - (cpx + bx)
+        uty = bsy - (cpy + by)
+        un = torch.clamp(torch.sqrt(utx * utx + uty * uty), min=1e-9)
+        utx, uty = utx / un, uty / un
+        uxp, uyp = g(a_dx, i_ac), g(a_dy, i_ac)
+        xc_x = g(a_x, i_ac) - k["ra"] * uxp - k["c_off0"] * uxp
+        xc_y = g(a_y, i_ac) - k["ra"] * uyp - k["c_off0"] * uyp
+        # level-d ligands from the same starting poses
+        sel_b = new_b & act_b & (parent_b >= 0)
+        ux2, uy2 = g(a_dx, i_ba), g(a_dy, i_ba)
+        cx2 = g(a_x, i_ba) + k["ra_seat"] * ux2
+        cy2 = g(a_y, i_ba) + k["ra_seat"] * uy2
+        pj = torch.clamp(g(a_site, i_ba), 1, 3)
+        ghx, ghy = ab._pick3(pj, k["bead"], 0), ab._pick3(pj, k["bead"], 1)
+        qwb, qzb = ab._quat_z_cs(ghx * (-ux2) + ghy * (-uy2),
+                                 ghx * (-uy2) - ghy * (-ux2))
+
+        # the pass's writes: level-d cells only
+        a_x = torch.where(sel_t, bsx + k["t_off0"] * utx,
+                          torch.where(sel_c, xc_x, a_x))
+        a_y = torch.where(sel_t, bsy + k["t_off0"] * uty,
+                          torch.where(sel_c, xc_y, a_y))
+        a_dx = torch.where(sel_t, -utx, torch.where(sel_c, -uxp, a_dx))
+        a_dy = torch.where(sel_t, -uty, torch.where(sel_c, -uyp, a_dy))
+        a_snap = torch.where(sel_t | sel_c, 1, a_snap)
+        b_cx = torch.where(sel_b, cx2, b_cx)
+        b_cy = torch.where(sel_b, cy2, b_cy)
+        b_cz = torch.where(sel_b, k["plane_z"], b_cz)
+        b_qw = torch.where(sel_b, qwb, b_qw)
+        b_qx = torch.where(sel_b, zero, b_qx)
+        b_qy = torch.where(sel_b, zero, b_qy)
+        b_qz = torch.where(sel_b, qzb, b_qz)
+        b_laid_new = torch.where(sel_b, 1, b_laid_new)
+        depth_a = torch.where(live[:, None], nda, depth_a)
+        depth_b = torch.where(live[:, None], ndb, depth_b)
+        live = new_a.any(1) | new_b.any(1)      # the barrier's OR
+        if not live.any():
+            break
+
+    a_snap = torch.where(act_a & ~ir_a & (depth_a >= inf), 2, a_snap)
+    b_laid_new = torch.where(act_b & ~ir_b & (depth_b >= inf),
+                             b_laid_new + 2, b_laid_new)
+    return (torch.stack([a_x, a_y], -1), torch.stack([a_dx, a_dy], -1),
+            a_snap.to(torch.int32), torch.stack([b_cx, b_cy, b_cz], -1),
+            torch.stack([b_qw, b_qx, b_qy, b_qz], -1),
+            b_laid_new.to(torch.int32)), passes
+
+
+def _no_cis(st):
+    return st._replace(a_cis=torch.full_like(st.a_cis, -1))
+
+
+def _no_bonds(st):
+    none = torch.full_like
+    return st._replace(a_trans=none(st.a_trans, -1),
+                       a_site=none(st.a_site, -1), a_cis=none(st.a_cis, -1),
+                       b_partner=none(st.b_partner, -1))
+
+
+# (case, align_depth, state maker, passes): the mature reference state
+# with three root draws, bonded states at four depths, a trans-only
+# topology (receptor-ligand-receptor only: 2 passes) and no bonds (1 pass)
+LEVEL_CASES = [
+    *[(f"ref_cpt_seed{s}", 8, lambda c, s=s: load_reference_cpt(
+        REF_CPT, c, seed=s, device="cpu"), n)
+      for s, n in ((0, 8), (1, 8), (2, 6))],
+    *[(f"bonded_depth{d}", d, lambda c: bonded_state(
+        c, 1, seed=1, device="cpu"), n)
+      for d, n in ((1, 1), (3, 3), (8, 8), (12, 12))],
+    ("trans_only", 8, lambda c: _no_cis(bonded_state(c, 1, seed=3,
+                                                     device="cpu")), 2),
+    ("no_bonds", 8, lambda c: _no_bonds(bonded_state(c, 1, seed=3,
+                                                     device="cpu")), 1),
+]
+
+
+@pytest.mark.parametrize("case,depth,make,passes", LEVEL_CASES,
+                         ids=[c[0] for c in LEVEL_CASES])
+def test_level_schedule_equals_plain(case, depth, make, passes):
+    """The kernels' one-pass-per-level schedule, early exit included, is
+    K1's plain version to the bit at SimConfig(): the invariant the CUDA
+    core's single barrier a pass rests on."""
+    cfg = SimConfig(align_depth=depth)
+    args = align_core_inputs(make(cfg), cfg)
+    got, ran = level_schedule(*args, cfg)
+    want = align_batched.align_core_batched_plain(*args, cfg)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert ran.tolist() == [passes]
+    assert (got[2] == 1).any() or case == "no_bonds"

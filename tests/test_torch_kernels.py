@@ -8,10 +8,14 @@ where JAX is not installed:
         tests/test_torch_kernels.py
 
 Tolerances: K1 positions 1e-4 A, directions and quaternions 1e-5,
-integer codes exact; K2 and K3 (the lattice step) to the bit.  The
+integer codes exact, on the bonded fixtures; K1 on the mature reference
+state and on the trans-only and bond-free replicas, K2 and K3 (the
+lattice step) to the bit.  The
 kernels are built with -fmad=false and round each operation as their
 plain versions do.
 """
+
+import os
 
 import pytest
 import torch
@@ -19,15 +23,18 @@ import torch
 from kmc_tpu_torch import (LatticeConfig, SimConfig, init_lattice,
                            init_state, lazy_ensemble_step, step_fn)
 from kmc_tpu_torch import convert
+from kmc_tpu_torch.io.checkpoint import load_reference_cpt
 from kmc_tpu_torch.lattice.step import (lattice_step, lattice_step_arrays,
                                         step_variant)
 from kmc_tpu_torch.ops import align as k2
 from kmc_tpu_torch.ops import align_batched
 from kmc_tpu_torch.ops import lattice as k3
+from kmc_tpu_torch.parallel.ensemble import broadcast_ensemble
 from kmc_tpu_torch.testing import (align_core_inputs,
                                    align_core_single_inputs, bonded_state)
 
 POS_TOL, ANG_TOL = 1e-4, 1e-5
+REF_CPT = os.path.join(os.path.dirname(__file__), "data", "ref_position.cpt")
 SMALL = SimConfig(n_a=24, n_b=8, cell_range_x=700.0, cell_range_y=700.0,
                   cell_range_z=200.0)
 
@@ -203,6 +210,72 @@ def test_step_fn_on_card_matches_cpu():
         for f in want_obs._fields:
             assert torch.equal(getattr(obs, f).cpu(), getattr(want_obs, f))
     assert init_state(SMALL, 0).a_xy.is_cuda
+
+
+# ---------------------------------------------------------------------------
+# K1 and K2 on the mature reference state and on shallow topologies: the
+# level schedule's early exit after 8, 2 and 1 passes
+
+
+def _assert_bitwise(got, want):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.equal(g, w)
+
+
+def _strip(st, cis_only):
+    none = torch.full_like
+    st = st._replace(a_cis=none(st.a_cis, -1))
+    if cis_only:
+        return st
+    return st._replace(a_trans=none(st.a_trans, -1),
+                       a_site=none(st.a_site, -1),
+                       b_partner=none(st.b_partner, -1))
+
+
+@pytest.mark.gpu
+def test_single_kernel_matches_plain_on_reference_state():
+    """K2 on a mature state of the C++ reference (144 of 200 molecules in
+    complexes, chains 6-8 levels deep), to the bit."""
+    dev = _cuda()
+    cfg = SimConfig()
+    args = align_core_single_inputs(
+        load_reference_cpt(REF_CPT, cfg, seed=0, device=dev), cfg)
+    got = k2.align_core_single(*args, cfg)
+    _assert_bitwise(got, k2.align_core_single_plain(*args, cfg))
+    assert int((got[2] == 1).sum()) > 100
+
+
+@pytest.mark.gpu
+def test_align_kernel_bitwise_on_reference_ensemble():
+    """K1 at B = 64 on the reference state broadcast with distinct keys, so
+    each replica draws its own roots, to the bit."""
+    dev = _cuda()
+    cfg = SimConfig()
+    st = broadcast_ensemble(load_reference_cpt(REF_CPT, cfg, seed=0,
+                                               device=dev), 64, seed=0)
+    args = align_core_inputs(st, cfg)
+    assert not torch.equal(args[9][0], args[9][1])      # roots differ
+    got = align_batched.align_core_batched(*args, cfg)
+    _assert_bitwise(got, align_batched.align_core_batched_plain(*args, cfg))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bonds", ["trans_only", "none"])
+def test_align_kernels_bitwise_on_shallow_topologies(bonds):
+    """K1 and K2 where the block leaves after 2 passes (receptor-ligand-
+    receptor only) or after 1 (no bond), to the bit."""
+    dev = _cuda()
+    cfg = SimConfig()
+    st = _strip(bonded_state(cfg, 1, seed=3, device=dev),
+                cis_only=bonds == "trans_only")
+    args = align_core_inputs(st, cfg)
+    got = align_batched.align_core_batched(*args, cfg)
+    _assert_bitwise(got, align_batched.align_core_batched_plain(*args, cfg))
+    assert bool((got[2] == 1).any()) == (bonds == "trans_only")
+    args2 = align_core_single_inputs(st, cfg)
+    _assert_bitwise(k2.align_core_single(*args2, cfg),
+                    k2.align_core_single_plain(*args2, cfg))
 
 
 # ---------------------------------------------------------------------------
