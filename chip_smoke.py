@@ -60,7 +60,30 @@ per phase with the seconds since start:
 14. K3 timing: device time (torch.profiler) at 512^2 and 8192^2
     beside the first design's, a wrapper call (CUDA events), the plain
     version, and the bound (bytes over 3.35 TB/s, integer operations over
-    16.7e12 a second).
+    16.7e12 a second);
+15. rejection-free card vs CPU: 400 rf_step events at 64^2 (300
+    particles) and 40 rf_batch_step batches at 128^2 (k = 64) under each
+    thinning rule, compared after every call: grid, disp and step equal,
+    time within 1e-5 relative; a parting is admitted only at an ulp tie
+    (the CPU's two best scores within 2 ulp), whose index is printed;
+16. rejection-free CLI: --engine lattice --lattice-rf --steps 2000
+    --out-every 500 at LatticeConfig(), then a resume of 1,000 events;
+    lattice.dat rows, time strictly increasing, particles conserved, and
+    K1, K2 and K3 launch 0 times;
+17. rejection-free throughput at 512^2: the serial make_rf_chunk(1000)
+    (events/s, and the device-busy share from torch.profiler over one
+    chunk), one event's launches, device time and call time by stage,
+    make_rf_batch_chunk(100, k_events=64) under each thinning rule
+    (events applied/s, kept events a batch), the stable sort's share of
+    a batch;
+18. parameter sweep: init_ensemble(SimConfig(), 512) with 8 values of
+    p_trans_ass (0 to twice the default) and rb_a_d (0 and the default),
+    64 replicas each; 5 step_fn and 5 step_fn_diag batched steps, K1 once
+    a step, K2 never, free receptors still where rb_a_d = 0; step time
+    with and without rp; the reference check of phase 7 with a
+    per-replica rp for step_fn and step_fn_diag (diag counts exact); a
+    single-trajectory step with rp=from_config(cfg), K2 once, bits equal
+    to rp=None.
 
 Each phase of a path sets every launch count to 0 before it runs the path
 and reads the counts just after.  The last three lines are one JSON
@@ -115,6 +138,10 @@ REPLICAS, K_ALIGN, WARMUP, TIMED = 512, 64, 2, 20
 SINGLE_STEPS, SINGLE_RESUME, SINGLE_OUT_EVERY = 100, 150, 50
 ENS_STEPS, ENS_OUT_EVERY = 20, 10
 K2_SEEDS = (1, 2, 3, 4)
+RF_SERIAL_SIZE, RF_SERIAL_PARTICLES, RF_SERIAL_EVENTS = 64, 300, 400
+RF_BATCH_SIZE, RF_BATCH_PARTICLES, RF_BATCH_CALLS, RF_K = 128, 1200, 40, 64
+RF_CHUNK, RF_BATCHES = 1000, 100
+SWEEP_GROUPS, SWEEP_STEPS = 8, 5
 PASS_DEPTHS = (1, 2, 4, 8, 12)   # seed 1 runs align_depth passes at each
 DEVICE = "cuda"
 CARD = ""          # nvidia-smi's "name, power.limit", set by the device phase
@@ -438,15 +465,21 @@ def read_lines(out, name):
 
 def check_against_cpu(step, ref, dev, what):
     """One card step from each of 10 trajectory states against the plain
-    CPU path from the same state; returns the worst pose difference."""
+    CPU path from the same state; returns the worst pose difference.  A
+    step that returns (state, obs, diag) has its diag counts compared
+    too, exactly."""
     import torch
     from kmc_tpu_torch import convert
 
     worst = 0.0
     for i in range(10):
         cpu_in = convert.from_numpy(convert.to_numpy(ref))
-        ref, _ = step(ref, dev)
-        cpu_out, _ = step(cpu_in, "cpu")
+        out = step(ref, dev)
+        cpu = step(cpu_in, "cpu")
+        ref, cpu_out = out[0], cpu[0]
+        for k, v in (cpu[2] if len(cpu) > 2 else {}).items():
+            if not torch.equal(out[2][k].cpu(), v):
+                fail(f"{what} reference check step {i}: diag {k} differs")
         for f in cpu_out._fields:
             a, b = getattr(ref, f).cpu(), getattr(cpu_out, f)
             if f in ("a_xy", "a_psi", "b_center", "b_quat"):
@@ -712,6 +745,267 @@ def lattice_phases(dev):
         "bound_by": bound_by,
         "library_ms": None,
     }
+
+
+# ---------------------------------------------------------------------------
+# the rejection-free lattice mode and the parameter sweep: no kernel of
+# their own (phases 15-18)
+
+def rf_phases(dev):
+    """Phases 15-17: the rejection-free mode on the card against the CPU,
+    through the CLI at LatticeConfig(), and its throughput at 512^2."""
+    import torch
+    from kmc_tpu_torch import LatticeConfig, cli
+    from kmc_tpu_torch.lattice import rejection_free as rf
+    from kmc_tpu_torch.lattice.grid import init_lattice
+    from kmc_tpu_torch.ops.align import align_core_single
+    from kmc_tpu_torch.ops.align_batched import align_core_batched
+    from kmc_tpu_torch.testing import rf_against_cpu
+
+    k1, k2 = align_core_batched, align_core_single
+    rates = dict(hop_prob=0.3, ass_prob=0.4, diss_prob=0.2)
+
+    # ---- 15. card against the CPU, after every event or batch ----
+    def compare(what, step, st, cfg, n, k_events=None):
+        t = time.perf_counter()
+        try:
+            done, tie, worst = rf_against_cpu(step, st, cfg, n, k_events)
+        except AssertionError as e:
+            fail(f"rejection-free card vs CPU, {what}: {e}")
+        said = (f"parted at call {tie} on an ulp tie (the CPU's best "
+                "scores within 2 ulp); comparison stopped there"
+                if tie is not None else "no parting")
+        log("rf card vs CPU", f"{what}: {done} of {n} calls equal (grid, "
+            f"disp, step), time within {worst:.3g} relative (bound 1e-5); "
+            f"{said}; {time.perf_counter() - t:.2f} s")
+
+    cfg = LatticeConfig(height=RF_SERIAL_SIZE, width=RF_SERIAL_SIZE, **rates)
+    compare(f"rf_step at {RF_SERIAL_SIZE}^2, {RF_SERIAL_PARTICLES} particles",
+            lambda s: rf.rf_step(s, cfg),
+            init_lattice(cfg, seed=1, n_particles=RF_SERIAL_PARTICLES,
+                         device=dev), cfg, RF_SERIAL_EVENTS)
+    cfg = LatticeConfig(height=RF_BATCH_SIZE, width=RF_BATCH_SIZE, **rates)
+    for thinning in ("parallel", "greedy"):
+        compare(f"rf_batch_step {thinning} at {RF_BATCH_SIZE}^2, k = "
+                f"{RF_K}, {RF_BATCH_PARTICLES} particles",
+                lambda s, th=thinning: rf.rf_batch_step(s, cfg, RF_K, 3, th),
+                init_lattice(cfg, seed=2, n_particles=RF_BATCH_PARTICLES,
+                             device=dev), cfg, RF_BATCH_CALLS, RF_K)
+
+    # ---- 16. the --lattice-rf CLI at LatticeConfig() ----
+    base = LatticeConfig()
+    with tempfile.TemporaryDirectory(prefix="kmc_rf_") as out:
+        argv = ["--engine", "lattice", "--lattice-rf", "--out", out,
+                "--seed", "0", "--device", dev.type, "--out-every",
+                str(LAT_CLI_OUT_EVERY), "--quiet"]
+        runs = []
+        reset_counts(k1, k2)
+        for steps in (LAT_CLI_STEPS, LAT_CLI_RESUME):
+            said = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(said):
+                rc = cli.main(["--steps", str(steps), *argv])
+            torch.cuda.synchronize()
+            runs.append((steps, time.perf_counter() - t, said.getvalue()))
+            if rc != 0:
+                fail(f"--lattice-rf CLI returned {rc}")
+        counts = (k1.launches, k2.launches, k3_wrapper().launches)
+        rows = [r.split() for r in read_lines(out, "lattice.dat")]
+        if not os.path.isfile(os.path.join(out, "lattice_checkpoint.npz")):
+            fail("--lattice-rf CLI wrote no lattice_checkpoint.npz")
+    total = LAT_CLI_STEPS + LAT_CLI_RESUME
+    want_steps = list(range(LAT_CLI_OUT_EVERY, total + 1, LAT_CLI_OUT_EVERY))
+    times = [float(r[-1]) for r in rows]
+    if [int(r[0]) for r in rows] != want_steps:
+        fail(f"--lattice-rf lattice.dat events {[r[0] for r in rows]}, "
+             f"want {want_steps}")
+    if len({r[1] for r in rows}) != 1:
+        fail(f"--lattice-rf CLI: particle count changed: {rows}")
+    if not all(a < b for a, b in zip(times, times[1:])) or times[0] <= 0:
+        fail(f"--lattice-rf CLI: time not strictly increasing: {times}")
+    if "resuming lattice from" not in runs[1][2]:
+        fail(f"second --lattice-rf run did not resume: {runs[1][2]!r}")
+    for n, sec, _ in runs:
+        log("rf CLI", f"--lattice-rf --steps {n} ({base.height}^2, density "
+            f"{base.density}): {sec:.3f} s = {n / sec:.1f} events/s (output "
+            f"every {LAT_CLI_OUT_EVERY} events included; first run includes "
+            "the cold start)")
+    log("rf CLI", f"K1, K2, K3 launches {counts}; lattice.dat {len(rows)} "
+        f"rows, {rows[0][1]} particles, time {times[0]:.4f} .. "
+        f"{times[-1]:.4f}; last row '{' '.join(rows[-1])}'")
+    if counts != (0, 0, 0):
+        fail(f"--lattice-rf CLI launched K1, K2, K3 {counts} times")
+
+    # ---- 17. throughput at 512^2 ----
+    st0 = init_lattice(base, seed=5, device=dev)
+    chunk = rf.make_rf_chunk(base, RF_CHUNK)
+    st = chunk(st0)                                         # warm-up
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    st = chunk(st)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    rows, wall = profile_kernels(lambda: chunk(st))
+    dev_ms = sum(r[1] for r in rows) / 1e3
+    if dev_ms > 0:
+        top = "; ".join(f"{k[:40]} {us / 1e3:.2f} ms x{n}"
+                        for k, us, n in rows[:4])
+        busy = (f"under the profiler: wall {wall * 1e3:.1f} ms, kernels "
+                f"{dev_ms:.2f} ms in {sum(r[2] for r in rows)} launches "
+                f"(device busy {100 * dev_ms / (wall * 1e3):.1f} %); top: "
+                f"{top}")
+    else:
+        busy = "device busy share not measured (the profiler recorded no " \
+               "CUDA kernel)"
+    log("rf throughput", f"serial make_rf_chunk({RF_CHUNK}) at "
+        f"{base.height}^2: {sec:.3f} s = {RF_CHUNK / sec:.1f} events/s "
+        f"({1e3 * sec / RF_CHUNK:.3f} ms an event); {busy}")
+    # one event by stage: launches and device time from the profiler over
+    # 10 calls, the call's time by CUDA events over 20
+    rates_t = rf.event_rates(st0.grid, base)
+    scores = rf._scores(st0, rates_t)
+    flat, keep = rf._select(scores)
+    parts = []
+    for name, fn in (
+            ("event_rates", lambda: rf.event_rates(st0.grid, base)),
+            ("Gumbel scores", lambda: rf._scores(st0, rates_t)),
+            ("argmax select", lambda: rf._select(scores)),
+            ("update + time draw",
+             lambda: rf._apply(st0, flat, keep, rates_t.sum()))):
+        rows, _ = profile_kernels(lambda fn=fn: [fn() for _ in range(10)])
+        parts.append(f"{name} {sum(r[2] for r in rows) / 10:.0f} launches, "
+                     f"{sum(r[1] for r in rows) / 10:.1f} us of device "
+                     f"time, {cuda_time_ms(fn, iters=20):.3f} ms a call")
+    log("rf throughput", f"one serial event at {base.height}^2 by stage "
+        "(profiler over 10 calls, CUDA events over 20): " + "; ".join(parts))
+    for thinning in ("parallel", "greedy"):
+        bchunk = rf.make_rf_batch_chunk(base, RF_BATCHES, k_events=RF_K,
+                                        thinning=thinning)
+        bchunk(st0)                                         # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got, _ = bchunk(st0)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t
+        # replay the same batches to count the kept events
+        s, kept = st0, 0
+        for _ in range(RF_BATCHES):
+            rates_t = rf.event_rates(s.grid, base)
+            flat, keep = rf._select(rf._scores(s, rates_t), RF_K, 3,
+                                    thinning)
+            kept += int(keep.sum())
+            s = rf._apply(s, flat, keep, rates_t.sum())
+        if not torch.equal(s.grid, got.grid):
+            fail(f"rf batch chunk ({thinning}): the replay differs")
+        log("rf throughput", f"make_rf_batch_chunk({RF_BATCHES}, k_events="
+            f"{RF_K}, {thinning}) at {base.height}^2: {sec:.3f} s = "
+            f"{1e3 * sec / RF_BATCHES:.3f} ms a batch, {kept / RF_BATCHES:.2f}"
+            f" kept events a batch, {kept / sec:.1f} events applied/s")
+    scores = rf._scores(st0, rf.event_rates(st0.grid, base))
+    sort_ms = cuda_time_ms(lambda: rf._top_k(scores, RF_K), iters=20)
+    batch_ms = cuda_time_ms(lambda: rf.rf_batch_step(st0, base, RF_K),
+                            iters=20)
+    log("rf throughput", f"stable sort of {scores.numel()} scores "
+        f"{sort_ms:.3f} ms of a {batch_ms:.3f} ms parallel batch "
+        f"({100 * sort_ms / batch_ms:.1f} %; CUDA events, 20 calls)")
+
+
+def sweep_phase(dev, k1, k2):
+    """Phase 18: a parameter sweep over the replicas of one batched step;
+    returns the K1 launches of its path."""
+    import torch
+    import kmc_tpu_torch
+    from kmc_tpu_torch import SimConfig
+    from kmc_tpu_torch.engine.clusters import cluster_labels
+    from kmc_tpu_torch.engine.params import from_config, sweep
+    from kmc_tpu_torch.engine.step import step_fn, step_fn_diag
+    from kmc_tpu_torch.testing import bonded_state
+
+    cfg = SimConfig()
+    per = REPLICAS // SWEEP_GROUPS
+    p_vals = torch.linspace(0.0, 2.0 * cfg.p_trans_ass, SWEEP_GROUPS)
+    d_vals = torch.tensor([0.0, cfg.rb_a_d] * (SWEEP_GROUPS // 2))
+    rp = sweep(cfg, REPLICAS, device=dev,
+               p_trans_ass=p_vals.repeat_interleave(per),
+               rb_a_d=d_vals.repeat_interleave(per))
+    frozen = rp.rb_a_d == 0
+    state = kmc_tpu_torch.init_ensemble(cfg, REPLICAS, seed=0, device=dev)
+    start = state
+    na = cfg.n_a
+    still = moved = 0
+    reset_counts(k1, k2)
+    t = time.perf_counter()
+    for i in range(2 * SWEEP_STEPS):
+        info = cluster_labels(state, cfg)
+        free_a = ((info.size == 1) & (info.n_b == 0))[:, :na]
+        before = state.a_xy
+        if i < SWEEP_STEPS:
+            state, obs = step_fn(state, cfg, dev, batched=True, rp=rp)
+        else:
+            state, obs, dg = step_fn_diag(state, cfg, dev, batched=True,
+                                          rp=rp)
+        shifted = (state.a_xy != before).any(-1) & free_a
+        if bool((shifted & frozen[:, None]).any()):
+            fail(f"sweep step {i}: a free receptor moved in a replica "
+                 "with rb_a_d = 0")
+        still += int((free_a & frozen[:, None]).sum())
+        moved += int((shifted & ~frozen[:, None]).sum())
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    k1_n, k2_n = k1.launches, k2.launches + k3_wrapper().launches
+    bonds = obs.bond_rl.reshape(SWEEP_GROUPS, per).float().mean(1)
+    log("sweep", f"init_ensemble(SimConfig(), {REPLICAS}) with p_trans_ass "
+        f"in {[round(float(p), 4) for p in p_vals]} and rb_a_d in "
+        f"{sorted(set(d_vals.tolist()))}, {per} replicas each: "
+        f"{SWEEP_STEPS} step_fn + {SWEEP_STEPS} step_fn_diag steps in "
+        f"{sec:.3f} s; K1 launches {k1_n}, K2 + K3 {k2_n}; free receptors "
+        f"held still {still} (rb_a_d = 0), moved {moved} (rb_a_d > 0); "
+        f"mean trans bonds by group {[round(float(b), 2) for b in bonds]}; "
+        f"diag totals { {k: int(v.sum()) for k, v in dg.items()} }")
+    if k1_n != 2 * SWEEP_STEPS or k2_n != 0:
+        fail(f"sweep: K1 launched {k1_n} times in {2 * SWEEP_STEPS} steps, "
+             f"K2 + K3 {k2_n} (want {2 * SWEEP_STEPS} and 0)")
+    if still == 0 or moved == 0:
+        fail("sweep: no free receptor to check in one of the two classes")
+    with_rp = cuda_time_ms(lambda: step_fn(start, cfg, dev, batched=True,
+                                           rp=rp), iters=3, warmup=1)
+    without = cuda_time_ms(lambda: step_fn(start, cfg, dev, batched=True),
+                           iters=3, warmup=1)
+    log("sweep", f"eager ensemble step at {REPLICAS} replicas (K1 on all): "
+        f"{with_rp:.2f} ms with rp, {without:.2f} ms without, on the same "
+        "state (CUDA events, 3 calls)")
+
+    small = SimConfig(n_a=24, n_b=8, cell_range_x=700.0, cell_range_y=700.0,
+                      cell_range_z=200.0)
+    over = dict(p_trans_ass=[0.0, 0.1, 0.4, 1.0] * 2,
+                p_trans_diss=[0.0, 0.5] * 4,
+                p_mono_cis_ass=[1.0, 0.0, 0.3, 0.01] * 2,
+                rb_a_d=[0.0] * 4 + [small.rb_a_d] * 4)
+    rps = {dev.type: sweep(small, 8, device=dev, **over),
+           "cpu": sweep(small, 8, device="cpu", **over)}
+    for name, fn in (("step_fn", step_fn), ("step_fn_diag", step_fn_diag)):
+        worst = check_against_cpu(
+            lambda s, d, fn=fn: fn(s, small, d, batched=True,
+                                   rp=rps[torch.device(d).type]),
+            bonded_state(small, 8, seed=5, device=dev), dev, name)
+        log("sweep", f"10 card steps of {name}(batched=True, rp=sweep) "
+            f"equal the CPU path (24+8 molecules, 8 replicas): topology/"
+            f"flags/keys{' and diag counts' if 'diag' in name else ''} "
+            f"bitwise, poses max abs diff {worst:.3g} A")
+
+    st1 = kmc_tpu_torch.init_state(cfg, 0, device=dev)
+    want, _ = step_fn(st1, cfg, dev)
+    reset_counts(k1, k2)
+    got, _ = step_fn(st1, cfg, dev, rp=from_config(cfg, dev))
+    torch.cuda.synchronize()
+    if (k2.launches, k1.launches) != (1, 0):
+        fail(f"single step with rp: K2 {k2.launches}, K1 {k1.launches} "
+             "launches (want 1 and 0)")
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        fail("single step with rp=from_config differs from rp=None")
+    log("sweep", "single-trajectory step_fn(rp=from_config(cfg)) at "
+        "SimConfig(): K2 once, K1 never; bits equal to rp=None")
+    return k1_n
 
 
 def main() -> int:
@@ -1001,6 +1295,10 @@ def main() -> int:
 
     # ---- 10-14. the lattice engine and K3 ----
     k3_entry = lattice_phases(dev)
+
+    # ---- 15-18. the rejection-free mode and the parameter sweep ----
+    rf_phases(dev)
+    sweep_phase(dev, k1, k2)
 
     print(json.dumps({"kernels": [{
         "name": "align_batched",

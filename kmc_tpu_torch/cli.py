@@ -17,9 +17,10 @@ Example::
 ``--set``): on the card through the kernel K3 (``csrc/lattice.cu``), with
 or without ``--lattice-pallas``, since the JAX package's XLA step and its
 kernel give the same bits; with ``--device cpu`` through the plain
-version.  Not ported yet: the lattice engine's rejection-free mode
-(``--lattice-rf``), which exits with an error, and sharding an ensemble
-over several cards: an ensemble runs on one card.
+version.  ``--lattice-rf`` runs its rejection-free mode instead
+(``lattice/rejection_free.py``, plain PyTorch on the chosen device), one
+event a step, so ``--steps`` counts events.  Not ported yet: sharding an
+ensemble over several cards: an ensemble runs on one card.
 """
 
 from __future__ import annotations
@@ -81,8 +82,8 @@ def main(argv=None):
                     help="lattice engine: the fused kernel, which the card "
                          "runs with or without this flag")
     ap.add_argument("--lattice-rf", action="store_true",
-                    help="lattice engine rejection-free mode (not ported "
-                         "yet)")
+                    help="lattice engine rejection-free mode (one event a "
+                         "step; takes precedence over --lattice-pallas)")
     ap.add_argument("--out-every", type=int, default=None,
                     help="lattice engine output cadence (default 1000)")
     ap.add_argument("--resume", default="auto",
@@ -92,10 +93,6 @@ def main(argv=None):
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
 
-    if args.lattice_rf:
-        raise SystemExit("the lattice engine's rejection-free mode "
-                         "(--lattice-rf) is not ported to kmc_tpu_torch yet; "
-                         "use kmc_tpu.cli")
     from kmc_tpu_torch.state import resolve_device
 
     if args.engine == "lattice":
@@ -156,10 +153,12 @@ def main(argv=None):
 def run_lattice(args, device) -> int:
     """Lattice-engine run (BASELINE configs 2/3): occupancy-grid diffusion-
     reaction with species histogram + MSD time series, in whole chunks of
-    --out-every steps.  The card runs K3, the CPU the plain version."""
+    --out-every steps.  The card runs K3, the CPU the plain version;
+    --lattice-rf runs the rejection-free mode on either, an event a step."""
     from kmc_tpu_torch.config import LatticeConfig
     from kmc_tpu_torch.lattice.grid import init_lattice
     from kmc_tpu_torch.lattice.io import LatticeOutputSet, load_lattice
+    from kmc_tpu_torch.lattice.rejection_free import make_rf_chunk
     from kmc_tpu_torch.lattice.step import make_lattice_chunk
     from kmc_tpu_torch.ops.lattice import make_pallas_lattice_chunk
 
@@ -175,8 +174,12 @@ def run_lattice(args, device) -> int:
     if fresh:
         state = init_lattice(lcfg, seed=args.seed, device=device)
 
-    make_chunk = (make_pallas_lattice_chunk if device.type == "cuda"
-                  else make_lattice_chunk)
+    if args.lattice_rf:
+        make_chunk = make_rf_chunk
+    elif device.type == "cuda":
+        make_chunk = make_pallas_lattice_chunk
+    else:
+        make_chunk = make_lattice_chunk
     chunk = make_chunk(lcfg, out_every)
     outputs = LatticeOutputSet(args.out, lcfg, fresh=fresh)
     n_steps = args.steps if args.steps is not None else 100_000

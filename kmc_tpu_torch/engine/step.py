@@ -12,9 +12,11 @@ replicas.  ``run`` advances ``out_every`` steps between calls of its
 output hook, the analogue of the reference's every-5000-steps I/O
 (main.cpp:2206).
 
-The JAX package's ``rp`` (traced RuntimeParams) and ``step_fn_diag``
-(per-channel reaction counts, ``react(diag=True)``) are not ported yet:
-they wait for ``engine/params.py`` (ROADMAP Queue 1 item 10).
+``rp`` (engine/params.py ``RuntimeParams``) replaces the config's
+diffusion constants and reaction probabilities, with a value per replica
+in a parameter sweep (``sweep``): one batched step runs different physics
+in each replica.  ``step_fn_diag`` also returns the per-replica reaction
+flux counts (``react(diag=True)``) and the diffusion's residual overlap.
 
 The entry points run on the card unless the caller passes
 ``device="cpu"``; without a card they raise rather than run on the CPU.
@@ -33,18 +35,13 @@ from kmc_tpu_torch.engine.clusters import cluster_labels
 from kmc_tpu_torch.engine.diffusion import diffuse
 from kmc_tpu_torch.engine.observables import (Observables, cluster_stats,
                                               observe)
+from kmc_tpu_torch.engine.params import RuntimeParams
 from kmc_tpu_torch.engine.reactions import react
 from kmc_tpu_torch.state import SimState, check_state_device, resolve_device
 
 
-def step_fn(state: SimState, cfg: SimConfig, device=None,
-            batched: bool = False) -> tuple[SimState, Observables]:
-    """One MC timestep: SimState -> (SimState, Observables).
-
-    ``batched=False`` (the single trajectory) takes a state of one replica
-    and runs the idealize core as K2; ``batched=True`` takes any number of
-    replicas and runs K1 on all of them.  ``cfg.fused_align=False`` runs
-    the unfused idealize instead of either kernel."""
+def _step(state: SimState, cfg: SimConfig, device, batched: bool,
+          rp: Optional[RuntimeParams], diag: bool):
     check_state_device(state, device)
     if not batched and state.step.shape[0] != 1:
         raise ValueError("step_fn advances one trajectory; got "
@@ -55,22 +52,54 @@ def step_fn(state: SimState, cfg: SimConfig, device=None,
     _, max_b = cluster_stats(info, cfg)
     max_c = torch.maximum(state.max_complex, max_b)
 
-    st = diffuse(state, info, rng.stream_key(skey, rng.STREAM_MOVE), cfg)
+    st = diffuse(state, info, rng.stream_key(skey, rng.STREAM_MOVE), cfg,
+                 rp, diag=diag)
+    if diag:
+        st, residual = st
     akey = rng.stream_key(skey, rng.STREAM_ALIGN)
     if cfg.fused_align:
         st = idealize_fused(st, info, akey, cfg, batched=batched)
     else:
         st = idealize(st, info, akey, cfg)
-    st = react(st, skey, cfg)
+    st = react(st, skey, cfg, rp, diag=diag)
+    if diag:
+        st, dg = st
+        dg["residual_overlap"] = residual.to(torch.int32)
     st = st._replace(step=state.step + 1, max_complex=max_c)
+    if diag:
+        return st, observe(st, info, cfg), dg
     return st, observe(st, info, cfg)
 
 
-def make_step_fn(cfg: SimConfig, device=None
-                 ) -> Callable[[SimState], tuple[SimState, Observables]]:
-    """Single-step function of a trajectory for the given config."""
+def step_fn(state: SimState, cfg: SimConfig, device=None,
+            batched: bool = False, rp: Optional[RuntimeParams] = None
+            ) -> tuple[SimState, Observables]:
+    """One MC timestep: SimState -> (SimState, Observables).
+
+    ``batched=False`` (the single trajectory) takes a state of one replica
+    and runs the idealize core as K2; ``batched=True`` takes any number of
+    replicas and runs K1 on all of them.  ``cfg.fused_align=False`` runs
+    the unfused idealize instead of either kernel.  ``rp`` overrides the
+    physics parameters: leaves 0-d, or [R] for a sweep over replicas."""
+    return _step(state, cfg, device, batched, rp, diag=False)
+
+
+def step_fn_diag(state: SimState, cfg: SimConfig, device=None,
+                 batched: bool = False,
+                 rp: Optional[RuntimeParams] = None):
+    """``step_fn`` returning (state, obs, diag) with per-channel reaction
+    flux diagnostics: eligible candidates and accepted events per channel
+    (``react(diag=True)``) and ``residual_overlap`` (``diffuse(diag=
+    True)``), each int32 [R].  The JAX package's scripts/chan_flux.py uses
+    them to bisect kinetics deviations channel by channel."""
+    return _step(state, cfg, device, batched, rp, diag=True)
+
+
+def make_step_fn(cfg: SimConfig, device=None) -> Callable:
+    """Single-step function ``f(state, rp=None)`` of a trajectory for the
+    given config."""
     dev = resolve_device(device)
-    return lambda state: step_fn(state, cfg, dev)
+    return lambda state, rp=None: step_fn(state, cfg, dev, rp=rp)
 
 
 def make_chunk_fn(cfg: SimConfig, chunk: Optional[int] = None, device=None):

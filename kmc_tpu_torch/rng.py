@@ -142,14 +142,33 @@ def _threshold_words(p: float):
             int(np.clip(tl, f(0.0), f(4294967040.0))))
 
 
-def tiny_bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
+def _threshold_tensors(p: torch.Tensor):
+    """The same words for a float32 tensor of probabilities, on its device.
+    Each step is exact in float32 (scalings by 2^32, a floor, the
+    difference of a number and its floor), so the words equal
+    ``_threshold_words`` of each element; 4294967040 is the largest
+    float32 below 2^32."""
+    t = p.to(torch.float32) * 4294967296.0
+    th = torch.floor(t)
+    tl = torch.floor((t - th) * 4294967296.0)
+    return (torch.clamp(th, 0.0, 4294967040.0).to(torch.int64),
+            torch.clamp(tl, 0.0, 4294967040.0).to(torch.int64))
+
+
+def tiny_bernoulli(key: torch.Tensor, p, shape) -> torch.Tensor:
     """Bernoulli(p) resolving p down to ~5e-20, required for the reference's
     dissociation probabilities (~1e-12): two 32-bit draws form a 64-bit
     uniform that fires iff (hi, lo) < p * 2^64.  A float32 ``uniform < p``
     fires at its 2^-23 quantization regardless of p (the round-2 bond_cis
-    bias, PARITY.md) and must never replace this."""
+    bias, PARITY.md) and must never replace this.
+
+    ``p`` is a float, or a float32 tensor that broadcasts against the key's
+    leading axes (0-d, or one value per key, [R] for a key of [R, 2])."""
     kh, kl = split(key).unbind(-2)
     hi = bits(kh, shape)
     lo = bits(kl, shape)
-    th, tl = _threshold_words(p)
+    if torch.is_tensor(p):
+        th, tl = _threshold_tensors(p.reshape(*p.shape, *(1,) * len(shape)))
+    else:
+        th, tl = _threshold_words(p)
     return (hi < th) | ((hi == th) & (lo < tl))

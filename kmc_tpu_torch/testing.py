@@ -1,7 +1,8 @@
 """Inputs for checking the port's kernels against their plain versions:
 replica states with random bonded topologies, made from a seed, and the
 inputs of K1 and K2 formed from them exactly as the main paths form
-them."""
+them; and the ulp-tie rule under which two rejection-free trajectories
+may part."""
 
 from __future__ import annotations
 
@@ -9,9 +10,11 @@ import numpy as np
 import torch
 
 from kmc_tpu_torch import rng
-from kmc_tpu_torch.config import SimConfig
+from kmc_tpu_torch.config import LatticeConfig, SimConfig
 from kmc_tpu_torch.engine.align import _choose_roots
 from kmc_tpu_torch.engine.clusters import cluster_labels
+from kmc_tpu_torch.lattice.grid import LatticeState
+from kmc_tpu_torch.lattice.rejection_free import _scores, event_rates
 from kmc_tpu_torch.models.tnfr import ligand_template
 from kmc_tpu_torch.parallel.ensemble import init_ensemble
 from kmc_tpu_torch.state import SimState
@@ -81,3 +84,56 @@ def align_core_single_inputs(st: SimState,
             b_quat.contiguous(), a_trans, a_site, a_cis,
             b_partner.contiguous(), b_laid, root, act,
             ligand_template(cfg, st.a_xy.device).contiguous()]
+
+
+def rf_tie(state: LatticeState, cfg: LatticeConfig,
+           k_events: int | None = None, ulps: int = 2) -> bool:
+    """Whether the rejection-free selection from ``state`` sits on an ulp
+    tie: two scores adjacent in the descending order of the best
+    ``k_events`` + 1 (the best two for the serial step) lie within
+    ``ulps`` ulps of each other.  float32 ``log`` differs by an ulp
+    between libraries, so two correct trajectories may part only from
+    such a state."""
+    scores = _scores(state, event_rates(state.grid, cfg)).reshape(-1)
+    top = torch.sort(scores, descending=True).values[:(k_events or 1) + 1]
+    top = top[torch.isfinite(top)]
+    a = top[:-1].abs()
+    ulp = torch.nextafter(a, torch.full_like(a, float("inf"))) - a
+    gap = top[:-1].double() - top[1:].double()
+    return bool((gap <= ulps * ulp.double()).any())
+
+
+def rf_against_cpu(step, state: LatticeState, cfg: LatticeConfig, n: int,
+                   k_events: int | None = None, time_rtol: float = 1e-5):
+    """Advance ``state`` (on the card) and a CPU copy ``n`` times with
+    ``step`` (``rf_step`` or a batch step), comparing after every call:
+    grid, disp and step equal, time within ``time_rtol`` relative.
+
+    Returns (calls compared, the call at which the two parted on an ulp
+    tie or None, the worst relative time difference).  At a parting both
+    sides' scores are recomputed from the common state; it is admitted
+    only at an ulp tie of the CPU's (``rf_tie``), and the comparison stops
+    there.  Any other difference raises AssertionError."""
+    from kmc_tpu_torch import convert
+
+    cpu = convert.lattice_from_numpy(convert.lattice_to_numpy(state))
+    worst = 0.0
+    for i in range(n):
+        common, common_dev = cpu, state
+        state, cpu = step(state), step(cpu)
+        if not all(torch.equal(getattr(state, f).cpu(), getattr(cpu, f))
+                   for f in ("grid", "disp", "step")):
+            ties = (rf_tie(common, cfg, k_events),
+                    rf_tie(common_dev, cfg, k_events))
+            if ties[0]:
+                return i, i, worst
+            raise AssertionError(f"rejection-free call {i}: the card and "
+                                 "the CPU parted without an ulp tie (tie "
+                                 f"in the CPU's, the card's scores: {ties})")
+        t_dev, t_cpu = float(state.time), float(cpu.time)
+        rel = abs(t_dev - t_cpu) / max(abs(t_cpu), 1e-30)
+        worst = max(worst, rel)
+        if rel > time_rtol:
+            raise AssertionError(f"rejection-free call {i}: time {t_dev} "
+                                 f"on the card, {t_cpu} on the CPU")
+    return n, None, worst

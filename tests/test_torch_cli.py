@@ -11,8 +11,9 @@ not bitwise, after 40 free-running steps).
 
 The lattice engine (``--engine lattice``) at 64^2, 200 steps, output every
 50: lattice.dat byte-identical and the checkpoints equal, before and after
-a resume.  Its rejection-free mode (``--lattice-rf``) is not ported and is
-refused.
+a resume.  Its rejection-free mode (``--lattice-rf``) runs on the card
+by default and never falls back to the CPU; its files are compared with
+kmc_tpu.cli's in tests/test_torch_rejection_free.py.
 """
 
 import os
@@ -147,21 +148,28 @@ def test_cli_bad_value_and_unknown_key(tmp_path):
 @pytest.mark.parametrize("flag", [["--engine", "lattice"],
                                   ["--lattice-pallas"], ["--lattice-rf"]])
 def test_cli_lattice_not_ported(tmp_path, flag):
-    """The rejection-free mode is refused, whatever other lattice flags
-    come with it."""
-    with pytest.raises(SystemExit) as e:
-        tcli.main(["--steps", "1", "--out", str(tmp_path), *flag,
-                   "--lattice-rf", "--device", "cpu"])
-    assert "not ported" in str(e.value) and "--lattice-rf" in str(e.value)
+    """The rejection-free mode, whatever other lattice flags come with it,
+    runs on the card by default and never falls back to the CPU: without
+    a card it raises before anything is written."""
+    argv = ["--steps", "1", "--out", str(tmp_path), *flag, "--lattice-rf",
+            "--quiet"]
+    if torch.cuda.is_available():
+        assert tcli.main(argv) == 0
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcli.main(argv)
     assert not os.listdir(tmp_path)                # nothing else ran
 
 
 def test_cli_module_entry_point(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "kmc_tpu_torch.cli", "--engine", "lattice",
-         "--lattice-rf", "--out", str(tmp_path)], cwd=REPO,
+         "--lattice-rf", "--steps", "1", "--out", str(tmp_path)], cwd=REPO,
         capture_output=True, text=True, timeout=120)
-    assert proc.returncode != 0 and "not ported" in proc.stderr
+    if torch.cuda.is_available():
+        assert proc.returncode == 0, proc.stderr
+    else:
+        assert proc.returncode != 0 and "device='cpu'" in proc.stderr
 
 
 def _lattice_args(out, *extra):

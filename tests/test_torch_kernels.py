@@ -13,6 +13,11 @@ state and on the trans-only and bond-free replicas, K2 and K3 (the
 lattice step) to the bit.  The
 kernels are built with -fmad=false and round each operation as their
 plain versions do.
+
+Two paths without a kernel of their own are also held to the CPU here:
+the rejection-free lattice mode (equal after every event or batch, time
+within 1e-5 relative, parting only at an ulp tie of its Gumbel scores)
+and the batched step with a per-replica parameter sweep (through K1).
 """
 
 import os
@@ -390,3 +395,69 @@ def test_lattice_wrapper_raises_instead_of_falling_back():
         k3.lattice_block_call(args[0].t(), *args[1:], cfg)
     with pytest.raises(ValueError):
         k3.lattice_block_call(args[0], args[1][:8], *args[2:], cfg)
+
+
+# ---------------------------------------------------------------------------
+# Paths without a kernel of their own: the rejection-free lattice mode and
+# the parameter sweep, on the card against the CPU
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["serial", "parallel", "greedy"])
+def test_rejection_free_card_matches_cpu(mode):
+    """200 serial events (or 40 batches of k = 64) at 32^2 on the card
+    against the CPU from the same start, after every call: grid, disp and
+    step equal, time within 1e-5 relative; a parting is admitted only at
+    an ulp tie of the two best scores (testing.rf_tie).  No kernel of K1,
+    K2 or K3 launches."""
+    from kmc_tpu_torch.lattice.rejection_free import rf_batch_step, rf_step
+    from kmc_tpu_torch.testing import rf_against_cpu
+
+    dev = _cuda()
+    cfg = LatticeConfig(height=32, width=32, hop_prob=0.3, ass_prob=0.4,
+                        diss_prob=0.2)
+    st = init_lattice(cfg, seed=3, n_particles=80, device=dev)
+    counts = (align_batched.align_core_batched.launches,
+              k2.align_core_single.launches, k3.lattice_block_call.launches)
+    if mode == "serial":
+        done, tie, _ = rf_against_cpu(lambda s: rf_step(s, cfg), st, cfg, 200)
+        assert tie is not None or done == 200
+    else:
+        done, tie, _ = rf_against_cpu(
+            lambda s: rf_batch_step(s, cfg, 64, 3, mode), st, cfg, 40, 64)
+        assert tie is not None or done == 40
+    assert done >= 20
+    assert counts == (align_batched.align_core_batched.launches,
+                      k2.align_core_single.launches,
+                      k3.lattice_block_call.launches)
+
+
+@pytest.mark.gpu
+def test_sweep_step_on_card_matches_cpu():
+    """The batched step_fn with a per-replica sweep: 3 card steps (K1 once
+    a step, K2 never) equal the CPU path from the same state, topology and
+    keys bitwise, poses within 1e-4 A."""
+    from kmc_tpu_torch.engine.params import sweep
+
+    dev = _cuda()
+    st = bonded_state(SMALL, 8, seed=5, device=dev)
+    over = dict(p_trans_ass=[0.0, 0.1, 0.4, 1.0] * 2,
+                p_trans_diss=[0.0, 0.5] * 4,
+                rb_a_d=[0.0] * 4 + [SMALL.rb_a_d] * 4)
+    rp_dev = sweep(SMALL, 8, device=dev, **over)
+    rp_cpu = sweep(SMALL, 8, device="cpu", **over)
+    for i in range(3):
+        cpu_in = convert.from_numpy(convert.to_numpy(st))
+        k1_before = align_batched.align_core_batched.launches
+        k2_before = k2.align_core_single.launches
+        st, _ = step_fn(st, SMALL, device=dev, batched=True, rp=rp_dev)
+        assert align_batched.align_core_batched.launches == k1_before + 1
+        assert k2.align_core_single.launches == k2_before
+        want, _ = step_fn(cpu_in, SMALL, device="cpu", batched=True,
+                          rp=rp_cpu)
+        for f in want._fields:
+            got = getattr(st, f).cpu()
+            if f in ("a_xy", "a_psi", "b_center", "b_quat"):
+                assert float((got - getattr(want, f)).abs().max()) <= POS_TOL
+            else:
+                assert torch.equal(got, getattr(want, f)), (f, i)
