@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port (kmc_tpu_torch) on one NVIDIA GPU.
+"""Smoke run of the PyTorch port (kmc_tpu_torch) on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Needs one CUDA device, the CUDA toolkit (nvcc) and the repository around
-this file; without a card it exits nonzero and prints no result.  It
-finishes in a few minutes, the kernel build included, and prints one line
-per phase with the seconds since start:
+Needs one CUDA device (phases 19 and 21 start a rank on each visible
+card), the CUDA toolkit (nvcc) and the repository around this file;
+without a card it exits nonzero and prints no result.  It finishes in a
+few minutes, the kernel build included, and prints one line per phase
+with the seconds since start:
 
 1. device: the card's name, count and power limit; TF32 off;
 2. build: nvcc builds the kernels, one process per source, all at once
@@ -83,7 +84,36 @@ per phase with the seconds since start:
     with and without rp; the reference check of phase 7 with a
     per-replica rp for step_fn and step_fn_diag (diag counts exact); a
     single-trajectory step with rp=from_config(cfg), K2 once, bits equal
-    to rp=None.
+    to rp=None;
+19. sharded ensemble CLI: one rank a visible card (W of them, started by
+    kmc_tpu_torch/parallel/launch.py with the KMC_* variables), --replicas
+    512 W --steps 20 at out_every = 10; its files equal, byte for byte
+    (the checkpoint array for array), those of one process on one card:
+    at W = 1 phase 6's, else one rank of 512 W replicas started alone on
+    cuda:0; K1 once a step at B = 512 on every rank, K2 and K3 never; then
+    a resume of 20 steps at the other launch (one process after W ranks;
+    at W = 1 a launched rank) must equal 40 uninterrupted steps;
+20. K3 on shards, on one card: the halo-padded blocks of a 1 x 1 (one
+    card's shard, a block 8 cells larger than the grid), a 2 x 2 and a
+    4 x 1 cut, taken from the whole grid by periodic indexing, at 8192^2
+    (4 steps) and at 64 x 64 (64 steps, all 8 direction variants): K3 on
+    each block at its negative origin (row0 - 4, col0 - 4) with the full
+    grid's size equals the plain version on the same block, and the
+    cropped blocks put together equal whole-grid K3, every step;
+21. halo step through torch.distributed: on the squarest grid of W ranks
+    (1 x 1 on one card, 2 x 2 on four), make_sharded_lattice_step at
+    8192^2 (16 steps in chunks of 8) and at 64^2 (64 steps), and
+    make_halo_pallas_step at 64^2 (64 steps); rank 0 gathers the grid and
+    holds it bitwise to the whole-grid K3 chunk on its card; K3 once a
+    step on every rank;
+22. halo timing: K3's device time on the whole 8192^2 grid and on the
+    padded shards of 8192^2 and 4096^2 (torch.profiler) beside the plain
+    version and the bound; on each rank at 8192^2, the wall time a step of
+    make_sharded_lattice_step(chunk 10) and of 10 make_halo_pallas_step
+    calls (CUDA events around the calls), and one profiler trace of the
+    sharded call split by the halo module's ranges (pad, ghost refresh,
+    crop) and by kernel (K3, NCCL); the sharded ensemble CLI's
+    replica-steps/s after its first output against one rank on one card.
 
 Each phase of a path sets every launch count to 0 before it runs the path
 and reads the counts just after.  The last three lines are one JSON
@@ -94,11 +124,13 @@ failed check exits nonzero.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -142,6 +174,9 @@ RF_SERIAL_SIZE, RF_SERIAL_PARTICLES, RF_SERIAL_EVENTS = 64, 300, 400
 RF_BATCH_SIZE, RF_BATCH_PARTICLES, RF_BATCH_CALLS, RF_K = 128, 1200, 40, 64
 RF_CHUNK, RF_BATCHES = 1000, 100
 SWEEP_GROUPS, SWEEP_STEPS = 8, 5
+HALO_BIG_STEPS, HALO_TIME_STEPS = 16, 10
+RANK_TIMEOUT = 600     # seconds a spawn of ranks may take before it fails
+WORK = ""              # this run's temporary directory, made by main
 PASS_DEPTHS = (1, 2, 4, 8, 12)   # seed 1 runs align_depth passes at each
 DEVICE = "cuda"
 CARD = ""          # nvidia-smi's "name, power.limit", set by the device phase
@@ -416,31 +451,41 @@ def single_cli_phase(cfg, dev, k1, k2):
     return k2_n
 
 
-def ensemble_cli_phase(cfg, dev, k1, k2):
-    """The port's CLI, --replicas 512, 20 steps at out_every = 10."""
+def ensemble_argv(out, replicas, steps):
+    """The ensemble CLI's arguments of phases 6 and 19."""
+    return ["--out", out, "--seed", "0", "--device", DEVICE,
+            "--replicas", str(replicas), "--steps", str(steps),
+            "--set", f"out_every={ENS_OUT_EVERY}", "--quiet"]
+
+
+def run_cli(argv):
+    """cli.main in this process; the seconds it took (fails on rc != 0)."""
     from kmc_tpu_torch import cli
 
-    with tempfile.TemporaryDirectory(prefix="kmc_ens_") as out:
-        argv = ["--out", out, "--seed", "0", "--device", dev.type,
-                "--replicas", str(REPLICAS), "--steps", str(ENS_STEPS),
-                "--set", f"out_every={ENS_OUT_EVERY}", "--quiet"]
-        reset_counts(k1, k2)
-        t = time.perf_counter()
-        with contextlib.redirect_stdout(io.StringIO()):
-            rc = cli.main(argv)
-        torch_sync()
-        sec = time.perf_counter() - t
-        k1_n, k1_reps, k2_n = k1.launches, k1.replicas, k2.launches
-        k2_n += k3_wrapper().launches      # neither K2 nor K3 may launch
-        if rc != 0:
-            fail(f"ensemble CLI returned {rc}")
-        rows = [r for r in read_lines(out, "bond_ens.dat")
-                if not r.startswith("#")]
-        if len(rows) != ENS_STEPS // ENS_OUT_EVERY:
-            fail(f"bond_ens.dat has {len(rows)} rows")
-        if not os.path.isfile(os.path.join(out, "ensemble_checkpoint.npz")):
-            fail("ensemble CLI wrote no ensemble_checkpoint.npz")
-        last = rows[-1].split()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(argv)
+    torch_sync()
+    if rc != 0:
+        fail(f"CLI {' '.join(argv)} returned {rc}")
+    return time.perf_counter() - t
+
+
+def ensemble_cli_phase(cfg, out, k1, k2):
+    """The port's CLI, --replicas 512, 20 steps at out_every = 10, into
+    ``out`` (phase 19 compares its own run with these files); returns
+    the seconds it took."""
+    reset_counts(k1, k2)
+    sec = run_cli(ensemble_argv(out, REPLICAS, ENS_STEPS))
+    k1_n, k1_reps, k2_n = k1.launches, k1.replicas, k2.launches
+    k2_n += k3_wrapper().launches      # neither K2 nor K3 may launch
+    rows = [r for r in read_lines(out, "bond_ens.dat")
+            if not r.startswith("#")]
+    if len(rows) != ENS_STEPS // ENS_OUT_EVERY:
+        fail(f"bond_ens.dat has {len(rows)} rows")
+    if not os.path.isfile(os.path.join(out, "ensemble_checkpoint.npz")):
+        fail("ensemble CLI wrote no ensemble_checkpoint.npz")
+    last = rows[-1].split()
     log("ensemble CLI", f"--replicas {REPLICAS} --steps {ENS_STEPS}: "
         f"{sec:.3f} s = {1e3 * sec / ENS_STEPS:.2f} ms/step, "
         f"{REPLICAS * ENS_STEPS / sec:.1f} replica-steps/s (cold start and "
@@ -450,6 +495,7 @@ def ensemble_cli_phase(cfg, dev, k1, k2):
     if k1_n != ENS_STEPS or k1_reps != ENS_STEPS * REPLICAS or k2_n != 0:
         fail(f"ensemble CLI: K1 {k1_n} launches over {k1_reps} replicas, "
              f"K2 + K3 {k2_n} (want {ENS_STEPS} at B = {REPLICAS}, and 0)")
+    return sec
 
 
 def torch_sync():
@@ -1008,6 +1054,291 @@ def sweep_phase(dev, k1, k2):
     return k1_n
 
 
+# ---------------------------------------------------------------------------
+# the multi-device paths: the sharded ensemble CLI and the halo lattice
+# (phases 19-22), one rank a visible card
+
+def spawn_ranks(n, argv):
+    """``python argv`` as n ranks (parallel/launch.py); each rank's last
+    output line, a JSON object.  A rank that fails fails the phase."""
+    from kmc_tpu_torch.parallel.launch import spawn
+
+    try:
+        logs = spawn(n, argv, timeout=RANK_TIMEOUT, cwd=REPO)
+    except RuntimeError as e:
+        fail(str(e))
+    return [json.loads(log.strip().splitlines()[-1]) for log in logs]
+
+
+def same_files(a, b, what):
+    """Every file of run ``a`` equals run ``b``'s: text byte for byte, the
+    checkpoint's arrays bitwise (a zip's bytes hold a time stamp)."""
+    import numpy as np
+
+    names = sorted(os.listdir(a))
+    if names != sorted(os.listdir(b)):
+        fail(f"{what}: files {names} and {sorted(os.listdir(b))}")
+    for f in names:
+        pa, pb = os.path.join(a, f), os.path.join(b, f)
+        if f.endswith(".npz"):
+            with np.load(pa) as za, np.load(pb) as zb:
+                if sorted(za.files) != sorted(zb.files) or not all(
+                        np.array_equal(za[k], zb[k]) for k in za.files):
+                    fail(f"{what}: {f} differs")
+        else:
+            with open(pa, "rb") as fa, open(pb, "rb") as fb:
+                if fa.read() != fb.read():
+                    fail(f"{what}: {f} differs")
+    return names
+
+
+def rank_grid(n):
+    """The squarest (nx, ny) grid of n ranks, nx <= ny."""
+    nx = int(n ** 0.5)
+    while n % nx:
+        nx -= 1
+    return nx, n // nx
+
+
+def steady_rate(counts, reps):
+    """Replica-steps/s of ranks over the chunks after the first output
+    (each rank's clock from its second chunk's start to cli.main's end;
+    the slowest rank)."""
+    return reps * counts[0]["steady_steps"] / max(c["steady_seconds"]
+                                                  for c in counts)
+
+
+def sharded_cli_phase(ens_dir, ens_sec):
+    """19: the ensemble CLI as one rank a card, --replicas 512 W; its files
+    against one process on one card (at W = 1 phase 6's; else one rank
+    started alone, run as the W ranks are run: a cold process on one
+    thread); a resume at the other launch; K1 once a step on every rank.
+    Returns the replica-steps/s it measured."""
+    import torch
+
+    w = torch.cuda.device_count()
+    reps = REPLICAS * w
+    sharded = os.path.join(WORK, "sharded")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    counts = spawn_ranks(w, ["-m", "kmc_tpu_torch.testing", "cli", "--",
+                             *ensemble_argv(sharded, reps, ENS_STEPS)])
+    sec = time.perf_counter() - t
+    for c in counts:
+        if (c["k1"], c["k1_replicas"], c["k2"], c["k3"]) != (
+                ENS_STEPS, ENS_STEPS * REPLICAS, 0, 0):
+            fail(f"sharded ensemble CLI rank {c['rank']}: K1 {c['k1']} "
+                 f"launches over {c['k1_replicas']} replicas, K2 {c['k2']}, "
+                 f"K3 {c['k3']} (want {ENS_STEPS} at B = {REPLICAS}, 0, 0)")
+    rates = {f"{w} rank(s), after the first output":
+             steady_rate(counts, reps),
+             f"{w} rank(s), all of cli.main":
+             reps * ENS_STEPS / max(c["seconds"] for c in counts)}
+    if w == 1:
+        single = ens_dir
+    else:
+        single = os.path.join(WORK, "single")
+        one = spawn_ranks(1, ["-m", "kmc_tpu_torch.testing", "cli", "--",
+                              *ensemble_argv(single, reps, ENS_STEPS)])
+        rates["1 rank on one card, after the first output"] = steady_rate(
+            one, reps)
+        rates["1 rank on one card, all of cli.main"] = (
+            reps * ENS_STEPS / one[0]["seconds"])
+    rates[f"phase 6 (in this process, {REPLICAS} replicas), all of cli.main"] = (
+        REPLICAS * ENS_STEPS / ens_sec)
+    names = same_files(sharded, single, f"sharded ensemble CLI at W = {w}")
+    log("sharded ensemble CLI", f"{w} rank(s), --replicas {reps} --steps "
+        f"{ENS_STEPS}: the slowest rank {max(c['seconds'] for c in counts):.3f}"
+        f" s in cli.main, {max(c['steady_seconds'] for c in counts):.3f} s "
+        f"after its first output (the group formed before it in "
+        f"{max(c['join_seconds'] for c in counts):.3f} s), {sec:.3f} s with "
+        f"the ranks' start; files {', '.join(names)} equal to "
+        + ("phase 6's" if w == 1 else f"one rank's of {reps} replicas on one "
+           "card") + f"; per rank K1 {counts[0]['k1']} launches at B = "
+        f"{REPLICAS}, K2 and K3 0")
+
+    # resume at the other launch: one process resumes the W ranks' run (at
+    # W = 1, a rank started by the launcher resumes), against 40 steps
+    t = time.perf_counter()
+    if w == 1:
+        spawn_ranks(1, ["-m", "kmc_tpu_torch.testing", "cli", "--",
+                        *ensemble_argv(sharded, reps, ENS_STEPS)])
+        how = "a launched rank"
+    else:
+        run_cli(ensemble_argv(sharded, reps, ENS_STEPS))
+        how = "one process"
+    resume_sec = time.perf_counter() - t
+    whole = os.path.join(WORK, "whole")
+    whole_sec = run_cli(ensemble_argv(whole, reps, 2 * ENS_STEPS))
+    same_files(sharded, whole, "resumed sharded ensemble CLI")
+    log("sharded ensemble CLI", f"{how} resumed it for {ENS_STEPS} steps "
+        f"({resume_sec:.3f} s): every file equals {2 * ENS_STEPS} "
+        f"uninterrupted steps of one process ({whole_sec:.3f} s)")
+    return rates
+
+
+def shard_k3_phase(dev):
+    """20: K3 on the halo-padded blocks of 1 x 1 (one card's shard: a block
+    larger than the grid), 2 x 2 and 4 x 1 cuts, at their negative global
+    origins, against the plain version on the same block
+    and, cropped and put together, against whole-grid K3, every step."""
+    import torch
+    from kmc_tpu_torch import LatticeConfig
+    from kmc_tpu_torch.lattice.grid import init_lattice
+    from kmc_tpu_torch.lattice.step import lattice_step_arrays, step_variant
+    from kmc_tpu_torch.ops.lattice import pallas_lattice_step
+    from kmc_tpu_torch.testing import step_halo_blocks
+
+    k3 = k3_wrapper()
+    seen = set()
+    for size, steps, cfg in (
+            (LATTICE_BIG, LATTICE_BIG_STEPS, LatticeConfig()),
+            (64, LATTICE_STEPS, LatticeConfig(density=0.15, ass_prob=0.3,
+                                              diss_prob=0.1))):
+        cfg = cfg.replace(height=size, width=size)
+        for shape in ((1, 1), (2, 2), (4, 1)):
+            t = time.perf_counter()
+            st = init_lattice(cfg, seed=7, device=dev)
+            for i in range(steps):
+                if size == 64:
+                    seen.add(step_variant(st))
+                grid, disp, outs = step_halo_blocks(st, cfg, shape, k3)
+                _, _, plain = step_halo_blocks(st, cfg, shape,
+                                               lattice_step_arrays)
+                st = pallas_lattice_step(st, cfg)
+                torch.cuda.synchronize()
+                for (g, d), (pg, pd) in zip(outs, plain):
+                    if not (torch.equal(g, pg) and torch.equal(d, pd)):
+                        fail(f"K3 on a {shape} block of {size}^2, step {i}: "
+                             "differs from the plain version")
+                if not (torch.equal(grid, st.grid)
+                        and torch.equal(disp, st.disp)):
+                    fail(f"K3 on {shape} blocks of {size}^2, step {i}: the "
+                         "cropped blocks differ from whole-grid K3")
+                del outs, plain, grid, disp
+            h, w = size // shape[0] + 8, size // shape[1] + 8
+            log("K3 on shards", f"{size}^2 cut {shape[0]} x {shape[1]}: "
+                f"{steps} steps, K3 on each {h} x {w} padded block at its "
+                f"origin (row0 - 4, col0 - 4) bitwise equal to the plain "
+                f"version, cropped blocks bitwise equal to whole-grid K3; "
+                f"{time.perf_counter() - t:.2f} s")
+            del st
+    if len(seen) != 8:
+        fail(f"K3 on shards saw {len(seen)} of the 8 direction variants")
+    log("K3 on shards", f"variants seen at 64^2: {sorted(seen)}")
+
+
+def halo_phase():
+    """21: make_sharded_lattice_step on the squarest grid of the visible
+    cards' ranks, at 8192^2 (16 steps, with the timing split of phase 22)
+    and at 64^2 (64 steps), and make_halo_pallas_step at 64^2, each held
+    bitwise by rank 0 to the whole-grid K3 chunk on its card; K3 once a
+    step on every rank.  Returns the 8192^2 run's rank reports."""
+    import torch
+    from kmc_tpu_torch import LatticeConfig
+
+    w = torch.cuda.device_count()
+    nx, ny = rank_grid(w)
+    base, dense = LatticeConfig(), dict(density=0.15, ass=0.3, diss=0.1)
+    big = None
+    for size, steps, chunk, form, knobs in (
+            (LATTICE_BIG, HALO_BIG_STEPS, HALO_BIG_STEPS // 2, "sharded",
+             dict(density=base.density, ass=base.ass_prob,
+                  diss=base.diss_prob)),
+            (64, LATTICE_STEPS, LATTICE_STEPS // 2, "sharded", dense),
+            (64, LATTICE_STEPS, 1, "pallas", dense)):
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        argv = ["-m", "kmc_tpu_torch.testing", "halo", "--device", DEVICE,
+                "--shape", str(nx), str(ny), "--height", str(size),
+                "--width", str(size), "--seed", "8", "--steps", str(steps),
+                "--chunk", str(chunk), "--form", form, "--check",
+                *(f"--{k}={v}" for k, v in knobs.items())]
+        if size == LATTICE_BIG:
+            argv += ["--time", str(HALO_TIME_STEPS)]
+        reports = spawn_ranks(w, argv)
+        if not reports[0].get("equal"):
+            fail(f"halo {form} step at {size}^2 on {nx} x {ny} ranks: the "
+                 "gathered grid differs from the whole-grid K3 chunk")
+        bad = [r for r in reports if r["k3"] != steps]
+        if bad:
+            fail(f"halo {form} step at {size}^2: K3 launches "
+                 f"{[r['k3'] for r in reports]} (want {steps} a rank)")
+        log("halo step", f"{form} at {size}^2 on a {nx} x {ny} rank grid "
+            f"({w} card(s)), {steps} steps (chunk {chunk}): the gathered "
+            f"grid bitwise equal to the whole-grid K3 chunk, "
+            f"{reports[0]['particles']} particles; K3 launches per rank "
+            f"{[r['k3'] for r in reports]}; {time.perf_counter() - t:.2f} s "
+            "with the ranks' start")
+        if size == LATTICE_BIG:
+            big = reports
+    return big, (nx, ny)
+
+
+def halo_timing_phase(dev, reports, shape, cli_rates):
+    """22: K3's device time on the padded shard of 4096^2 and of 8192^2
+    beside whole-grid K3 at 8192^2; the halo step's parts at 8192^2 on
+    each rank (CUDA events); the sharded ensemble CLI's rate against one
+    card.  Returns K3's shard-use numbers at this run's shard size."""
+    from kmc_tpu_torch import LatticeConfig
+    from kmc_tpu_torch.lattice.grid import init_lattice
+    from kmc_tpu_torch.lattice.step import lattice_step_arrays
+
+    k3 = k3_wrapper()
+    base = LatticeConfig()
+    out = {}
+    full = LATTICE_BIG
+    for block in (full, full + 8, full // 2 + 8):
+        cfg = base.replace(height=full, width=full)
+        st = init_lattice(base.replace(height=block, width=block), seed=3,
+                          device=dev)
+        origin = 0 if block == full else -4
+        args = (st.grid, st.disp, st.step, st.seed)
+        k_ms, call_ms, plain_ms, how = time_kernel(
+            lambda *a: k3(*a, cfg, origin, origin),
+            lambda *a: lattice_step_arrays(*a, cfg, origin, origin),
+            args, "lattice_step_kernel", calls=100)
+        nbytes, ops = lattice_work(block, block)
+        bound_ms, bound_by = bound(nbytes, ops, INT32_OPS)
+        out[block] = (k_ms, plain_ms, bound_ms, bound_by)
+        what = ("whole grid" if block == full else
+                f"padded shard of {block - 8}^2 at origin (-4, -4)")
+        log("halo timing", f"K3 on a {block}^2 {what} of {full}^2: kernel "
+            f"{how}; wrapper call {call_ms * 1e3:.2f} us; plain "
+            f"{plain_ms * 1e3:.1f} us; bound {bound_ms * 1e3:.3f} us by "
+            f"{bound_by}; kernel / bound {k_ms / bound_ms:.2f}")
+        del st, args
+    for r in reports:
+        sp = r["split_ms"]
+
+        def part(k):
+            return f"{sp[k]:.4f}" if k in sp else "not measured"
+
+        log("halo timing", f"rank {r['rank']} of {shape[0]} x {shape[1]} "
+            f"at {LATTICE_BIG}^2, ms a step over {HALO_TIME_STEPS} steps: "
+            f"make_sharded_lattice_step(chunk {HALO_TIME_STEPS}) wall "
+            f"{sp['sharded_step_wall']:.4f}, make_halo_pallas_step wall "
+            f"{sp['halo_step_wall']:.4f} (CUDA events around the calls); "
+            f"one traced sharded call, device time by range: halo.pad "
+            f"{part('halo_pad')} (made once a chunk), halo.refresh "
+            f"{part('halo_refresh')}, "
+            f"halo.crop {part('halo_crop')} (made once a chunk); by kernel: K3 "
+            f"{sp['trace_k3']:.4f}, NCCL (exchange) {sp['trace_nccl']:.4f}, "
+            f"all {sp['trace_all']:.4f}")
+    log("halo timing", "sharded ensemble CLI replica-steps/s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in cli_rates.items()))
+    return out
+
+
+def multi_device_phases(dev, ens_dir, ens_sec):
+    """Phases 19-22; K3's launches on rank 0 of the 8192^2 sharded run."""
+    cli_rates = sharded_cli_phase(ens_dir, ens_sec)
+    shard_k3_phase(dev)
+    reports, shape = halo_phase()
+    halo_timing_phase(dev, reports, shape, cli_rates)
+    return {"launches": reports[0]["k3"]}
+
+
 def main() -> int:
     import torch
 
@@ -1040,6 +1371,10 @@ def main() -> int:
     CARD = card
     dev = torch.device(DEVICE)
 
+    global WORK
+    WORK = tempfile.mkdtemp(prefix="kmc_smoke_")
+    atexit.register(shutil.rmtree, WORK, True)
+
     # ---- 2. build ----
     info = build.build()
     build.load()
@@ -1054,7 +1389,6 @@ def main() -> int:
     smem2 = build.library("align").kmc_align_smem(cfg.n_a, cfg.n_b)
     log("build", f"align kernels' shared memory per block: K1 {smem}, K2 "
         f"{smem2} bytes (dynamic)")
-
     # ---- 3. K1 and K2 against their plain versions at the reference size
     mature = load_reference_cpt(REF_CPT, cfg, seed=0, device=dev)
     bonded3 = bonded_state(cfg, 1, seed=3, device=dev)
@@ -1155,7 +1489,8 @@ def main() -> int:
     k2_launches = single_cli_phase(cfg, dev, k1, k2)
 
     # ---- 6. ensemble through the CLI ----
-    ensemble_cli_phase(cfg, dev, k1, k2)
+    ens_dir = os.path.join(WORK, "ensemble")
+    ens_sec = ensemble_cli_phase(cfg, ens_dir, k1, k2)
 
     # ---- 7. small-input references: card steps vs the plain CPU path ----
     small = SimConfig(n_a=24, n_b=8, cell_range_x=700.0, cell_range_y=700.0,
@@ -1299,6 +1634,12 @@ def main() -> int:
     # ---- 15-18. the rejection-free mode and the parameter sweep ----
     rf_phases(dev)
     sweep_phase(dev, k1, k2)
+
+    # ---- 19-22. the multi-device paths ----
+    k3_shard = multi_device_phases(dev, ens_dir, ens_sec)
+    k3_entry.update(launches=k3_shard["launches"], launches_by_path={
+        "lattice CLI": k3_entry["launches"],
+        "make_sharded_lattice_step, rank 0": k3_shard["launches"]})
 
     print(json.dumps({"kernels": [{
         "name": "align_batched",

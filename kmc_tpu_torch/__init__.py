@@ -2,7 +2,7 @@
 
 A kinetic Monte Carlo simulator of TNF-receptor / ligand oligomerization
 (fixed-timestep diffusion-reaction of rigid bodies), run as a single
-trajectory or a replica ensemble on one NVIDIA GPU.  The package mirrors
+trajectory or a replica ensemble on NVIDIA GPUs.  The package mirrors
 ``kmc_tpu``'s layout (``engine/diffusion.py`` <-> ``kmc_tpu/engine/
 diffusion.py``), imports torch and never JAX, and runs the idealize core
 as hand-written CUDA kernels: K2 (``csrc/align.cu``) for the single
@@ -11,7 +11,11 @@ engine (``lattice/``) runs its whole step as the hand-written kernel K3
 (``csrc/lattice.cu``) on the card; its rejection-free mode
 (``lattice/rejection_free.py``) runs in plain PyTorch.  ``RuntimeParams``
 (``engine/params.py``) runs a parameter sweep across the replicas of one
-batched step.  Its tests hold it against ``kmc_tpu`` on the same inputs.
+batched step.  The multi-device paths (``parallel/mesh.py``,
+``distributed.py``, ``halo.py``) run one process a card on
+``torch.distributed``: a sharded replica ensemble, and a lattice cut over
+a rank grid with K3 on each halo-padded block.  Its tests hold it against
+``kmc_tpu`` on the same inputs.
 The command line is ``python -m kmc_tpu_torch.cli``.
 """
 

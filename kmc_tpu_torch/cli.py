@@ -19,8 +19,16 @@ or without ``--lattice-pallas``, since the JAX package's XLA step and its
 kernel give the same bits; with ``--device cpu`` through the plain
 version.  ``--lattice-rf`` runs its rejection-free mode instead
 (``lattice/rejection_free.py``, plain PyTorch on the chosen device), one
-event a step, so ``--steps`` counts events.  Not ported yet: sharding an
-ensemble over several cards: an ensemble runs on one card.
+event a step, so ``--steps`` counts events.
+
+An ensemble shards over ranks: start one process a card with
+``KMC_COORDINATOR=host:port KMC_NUM_PROCESSES=N KMC_PROCESS_ID=i``
+(``parallel/distributed.py``; gloo ranks with ``--device cpu``).  When N > 1
+divides ``--replicas``, rank p steps the replicas [p R / N, (p + 1) R / N)
+of the same ensemble and rank 0 writes every file, so the files equal a
+single process's.  Otherwise, and for every other run, rank 0 runs alone
+and the other ranks write nothing.  A process started alone runs on one
+card, however many are visible.
 """
 
 from __future__ import annotations
@@ -93,8 +101,23 @@ def main(argv=None):
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args(argv)
 
+    from kmc_tpu_torch.parallel import distributed
+
+    joined = distributed.initialize(device=args.device)
+    try:
+        return _run(args)
+    finally:
+        if joined:
+            distributed.shutdown()
+
+
+def _run(args) -> int:
+    from kmc_tpu_torch.parallel.mesh import world
     from kmc_tpu_torch.state import resolve_device
 
+    if args.engine == "lattice" or args.replicas <= 1:
+        if world()[0] != 0:
+            return 0                   # rank 0 alone runs an unsharded run
     if args.engine == "lattice":
         return run_lattice(args, resolve_device(args.device))
 
@@ -199,27 +222,45 @@ def run_lattice(args, device) -> int:
 
 
 def run_ensemble(cfg: SimConfig, args, device) -> int:
-    """Replica-ensemble run on one card: the eager ensemble chunk (K1 on all
-    replicas every step), merged kinetics with error bars to bond_ens.dat
-    and replica 0's reference-format files."""
+    """Replica-ensemble run: the eager ensemble chunk (K1 on all of a
+    rank's replicas every step), merged kinetics with error bars to
+    bond_ens.dat and replica 0's reference-format files.  Sharded over the
+    ranks when there are several and they divide the replicas; rank 0
+    gathers the observables and the state at every output and writes the
+    files, the checkpoint being the one a single process writes."""
     from kmc_tpu_torch.io.checkpoint import load_native, save_native
     from kmc_tpu_torch.io.writers import EnsembleOutputSet
-    from kmc_tpu_torch.parallel.ensemble import (init_ensemble,
+    from kmc_tpu_torch.parallel.distributed import gather_replicas
+    from kmc_tpu_torch.parallel.ensemble import (init_replicas,
                                                  make_ensemble_chunk)
+    from kmc_tpu_torch.parallel.mesh import (replica_mesh, replica_sharding,
+                                             shard_replicated_state)
 
+    mesh = replica_mesh(device)
     native = os.path.join(args.out, "ensemble_checkpoint.npz")
     state = None
     if args.resume in ("auto", "native") and os.path.exists(native):
-        state = load_native(native, device)
-        print(f"resuming ensemble from {native} at step "
-              f"{int(state.step[0])}")
+        state = load_native(native, mesh.device)
+    n_rep = args.replicas if state is None else state.step.shape[0]
+    sharded = mesh.size > 1 and n_rep % mesh.size == 0
+    if mesh.rank != 0 and not sharded:
+        return 0                       # rank 0 runs the whole ensemble
+    lead = mesh.rank == 0
+    if state is not None:
+        if lead:
+            print(f"resuming ensemble from {native} at step "
+                  f"{int(state.step[0])}")
+        if sharded:
+            state = shard_replicated_state(state, mesh)
     fresh = state is None
     if fresh:
-        state = init_ensemble(cfg, args.replicas, seed=args.seed,
-                              device=device)
+        block = (replica_sharding(mesh, n_rep) if sharded
+                 else slice(0, n_rep))
+        state = init_replicas(cfg, range(block.start, block.stop),
+                              seed=args.seed, device=mesh.device)
 
-    outputs = EnsembleOutputSet(args.out, cfg, fresh=fresh)
-    chunk = make_ensemble_chunk(cfg, cfg.out_every, device)
+    outputs = EnsembleOutputSet(args.out, cfg, fresh=fresh) if lead else None
+    chunk = make_ensemble_chunk(cfg, cfg.out_every, mesh.device)
     n_steps = args.steps if args.steps is not None else cfg.simu_step
     t0 = time.perf_counter()
     done = 0
@@ -227,16 +268,20 @@ def run_ensemble(cfg: SimConfig, args, device) -> int:
         while done < n_steps:
             state, obs = chunk(state)
             done += cfg.out_every
-            outputs(state, obs)
-            save_native(native, state, batched=True)
+            everyone = gather_replicas(obs) if sharded else obs
+            whole = gather_replicas(state) if sharded else state
+            if not lead:
+                continue
+            outputs(state, everyone)
+            save_native(native, whole, batched=True)
             if not args.quiet:
-                rate = done * args.replicas / max(time.perf_counter() - t0,
-                                                  1e-9)
-                print(f"step {int(state.step[0]) - 1} x{args.replicas}  "
+                rate = done * n_rep / max(time.perf_counter() - t0, 1e-9)
+                print(f"step {int(state.step[0]) - 1} x{n_rep}  "
                       f"rate={rate:,.0f} replica-steps/s", file=sys.stderr)
     finally:
-        outputs.close()
-    if not args.quiet:
+        if outputs is not None:
+            outputs.close()
+    if lead and not args.quiet:
         print(f"done at step {int(state.step[0]) - 1}")
     return 0
 

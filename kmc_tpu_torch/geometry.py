@@ -13,6 +13,60 @@ import math
 import torch
 
 
+def _broadcast(*xs):
+    """The arguments as tensors of one shape; numbers take the dtype and
+    device of the first tensor argument (float32 on the CPU if none)."""
+    ref = next((x for x in xs if torch.is_tensor(x)), None)
+    dtype = torch.float32 if ref is None else ref.dtype
+    dev = None if ref is None else ref.device
+    return torch.broadcast_tensors(*(
+        x if torch.is_tensor(x) else torch.tensor(x, dtype=dtype, device=dev)
+        for x in xs))
+
+
+def euler_matrix(theta, phi, psai):
+    """Rotation matrix of the reference's Euler convention
+    (main.cpp:332-342), shape (..., 3, 3), applied as p' = R (p - c) + c;
+    theta = phi = 0 is a rotation about z by psai."""
+    theta, phi, psai = _broadcast(theta, phi, psai)
+    ct, st = torch.cos(theta), torch.sin(theta)
+    cf, sf = torch.cos(phi), torch.sin(phi)
+    cp, sp = torch.cos(psai), torch.sin(psai)
+    r00 = cp * cf - ct * sf * sp
+    r01 = -sp * cf - ct * sf * cp
+    r02 = st * sf
+    r10 = cp * sf + ct * cf * sp
+    r11 = -sp * sf + ct * cf * cp
+    r12 = -st * cf
+    r20 = sp * st
+    r21 = cp * st
+    r22 = ct
+    return torch.stack([torch.stack([r00, r01, r02], dim=-1),
+                        torch.stack([r10, r11, r12], dim=-1),
+                        torch.stack([r20, r21, r22], dim=-1)], dim=-2)
+
+
+def rot_z(psai):
+    """Rotation about z by ``psai``: euler_matrix(0, 0, psai)."""
+    psai = torch.as_tensor(psai)
+    return euler_matrix(torch.zeros_like(psai), 0.0, psai)
+
+
+def apply_rotation(rot, points, center):
+    """R (points - center) + center, batched: rot (..., 3, 3), points
+    (..., K, 3), center (..., 3)."""
+    center = center[..., None, :]
+    return mat3_apply(rot[..., None, :, :], points - center) + center
+
+
+def rot2d_apply(angle, xy):
+    """A counter-clockwise 2D rotation by ``angle`` (main.cpp:1186-1187
+    layout) of xy (..., K, 2)."""
+    c, s = torch.cos(angle)[..., None], torch.sin(angle)[..., None]
+    x, y = xy[..., 0], xy[..., 1]
+    return torch.stack([x * c - y * s, x * s + y * c], dim=-1)
+
+
 def angle_between_deg(u, v, eps=1e-12):
     """Angle in degrees between u and v, acos-clamped (reference
     ``gettheta``, main.cpp:2329-2366)."""

@@ -27,6 +27,7 @@ version runs on the CPU; on the card the kernel draws them itself.
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -201,3 +202,19 @@ def make_lattice_chunk(cfg: LatticeConfig, chunk: int):
         return state
 
     return f
+
+
+def make_sharded_lattice_step(cfg: LatticeConfig, mesh,
+                              chunk: Optional[int] = None):
+    """``chunk`` (or one) steps of this rank's block of a grid cut over a
+    ``grid_mesh`` (``parallel/halo.py``), through ``lattice_block_call``:
+    K3 on the card, the plain version on the CPU.  The JAX package lets
+    XLA partition ``jnp.roll`` on a sharded array; torch has no
+    partitioner, so this is the explicit halo form: the block is padded
+    once, each step refreshes only the ghost strips and runs K3 on the
+    padded block at its global origin, and the interior is cropped once
+    (``halo.halo_chunk``)."""
+    from kmc_tpu_torch.ops.lattice import lattice_block_call
+    from kmc_tpu_torch.parallel.halo import halo_chunk
+
+    return halo_chunk(cfg, mesh, lattice_block_call, chunk or 1)

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from kmc_tpu_torch.config import SimConfig
+from kmc_tpu_torch.geometry import apply_rotation, euler_matrix, rot_z
 
 
 @functools.lru_cache(maxsize=None)
@@ -65,6 +66,30 @@ def receptor_template(cfg: SimConfig, device=None) -> torch.Tensor:
 
 def ligand_template(cfg: SimConfig, device=None) -> torch.Tensor:
     return torch.from_numpy(ligand_template_np(cfg)).to(device)
+
+
+def build_receptors(center_xy, psai, cfg: SimConfig) -> torch.Tensor:
+    """Receptor bodies (..., 4, 4, 3) at center_xy (..., 2) with azimuth
+    psai (...,): the template rotated about the rod's z axis, then moved
+    to (x, y, 0) (main.cpp:328-350)."""
+    flat = receptor_template(cfg, psai.device).reshape(16, 3)
+    rotated = apply_rotation(rot_z(psai), flat.expand(*psai.shape, 16, 3),
+                             psai.new_zeros(*psai.shape, 3))
+    body = rotated.reshape(*psai.shape, 4, 4, 3)
+    center = torch.cat([center_xy, center_xy.new_zeros(
+        *center_xy.shape[:-1], 1)], dim=-1)
+    return body + center[..., None, None, :]
+
+
+def build_ligands(center, theta, phi, psai, cfg: SimConfig) -> torch.Tensor:
+    """Ligand bodies (..., 4, 4, 3) at center (..., 3) with Euler angles
+    (...,): the template rotated in 3D about the virtual center
+    (main.cpp:421-446)."""
+    flat = ligand_template(cfg, psai.device).reshape(16, 3)
+    rotated = apply_rotation(euler_matrix(theta, phi, psai),
+                             flat.expand(*psai.shape, 16, 3),
+                             psai.new_zeros(*psai.shape, 3))
+    return rotated.reshape(*psai.shape, 4, 4, 3) + center[..., None, None, :]
 
 
 # Ideal bond frames (engine/align.py), from the reference's snap formulas:

@@ -40,9 +40,18 @@ def init_ensemble(cfg: SimConfig, n_replicas: int, seed: int = 0,
                   device=None) -> SimState:
     """Batched cold start: replica r starts from fold_in(key(seed), r), the
     JAX package's placement for the same seed."""
+    return init_replicas(cfg, range(n_replicas), seed, device)
+
+
+def init_replicas(cfg: SimConfig, replicas: range, seed: int = 0,
+                  device=None) -> SimState:
+    """The replicas ``replicas`` of init_ensemble(cfg, n, seed), built
+    directly: each replica's start depends only on its own key, so a
+    rank builds its block without the others."""
     dev = resolve_device(device)
     base = rng.base_key(seed, dev)
-    keys = rng.replica_key(base, torch.arange(n_replicas, device=dev))
+    keys = rng.replica_key(base, torch.arange(replicas.start, replicas.stop,
+                                              device=dev))
     return random_init_from_key(cfg, keys)
 
 

@@ -126,6 +126,57 @@ def test_quat_from_euler():
     assert_within_ulp(got, want, ulps=2.0)   # three cos/sin pairs compose
 
 
+def test_euler_matrix_and_rot_z():
+    e = np.random.default_rng(15).uniform(-np.pi, np.pi, (3, 64)).astype(
+        np.float32)
+    want = np.asarray(jg.euler_matrix(*map(jnp.asarray, e)))
+    got = tg.euler_matrix(*map(torch.from_numpy, e)).numpy()
+    assert_within_ulp(got, want, ulps=2.0)   # three cos/sin pairs compose
+    # numbers broadcast against tensors, as jnp.broadcast_arrays does
+    want = np.asarray(jg.euler_matrix(0.3, jnp.asarray(e[1]), 0.0))
+    got = tg.euler_matrix(0.3, torch.from_numpy(e[1]), 0.0).numpy()
+    assert_within_ulp(got, want, ulps=2.0)
+    assert_within_ulp(tg.rot_z(torch.from_numpy(e[2])).numpy(),
+                      np.asarray(jg.rot_z(jnp.asarray(e[2]))))
+
+
+def test_apply_rotation_and_rot2d():
+    rot, pts, ctr = (_rand(16, (64, 3, 3)), _rand(17, (64, 16, 3), 300.0),
+                     _rand(18, (64, 3), 300.0))
+    want = np.asarray(jg.apply_rotation(*map(jnp.asarray, (rot, pts, ctr))))
+    got = tg.apply_rotation(*map(torch.from_numpy, (rot, pts, ctr))).numpy()
+    # XLA's CPU dot fuses the three products into multiply-adds; the port
+    # rounds each product: 2 ulps
+    assert_within_ulp(got, want, ulps=2.0)
+    ang = np.random.default_rng(19).uniform(-np.pi, np.pi, 64).astype(
+        np.float32)
+    xy = _rand(20, (64, 5, 2), 300.0)
+    want = np.asarray(jg.rot2d_apply(jnp.asarray(ang), jnp.asarray(xy)))
+    got = tg.rot2d_apply(torch.from_numpy(ang), torch.from_numpy(xy)).numpy()
+    assert_within_ulp(got, want)
+
+
+def test_build_receptors_and_ligands():
+    cfg = tcfg.SimConfig()
+    jc = jcfg.SimConfig()
+    g = np.random.default_rng(21)
+    xy = g.uniform(-1000, 1000, (4, 16, 2)).astype(np.float32)
+    c3 = g.uniform(-1000, 1000, (4, 16, 3)).astype(np.float32)
+    th, ph, ps = g.uniform(-np.pi, np.pi, (3, 4, 16)).astype(np.float32)
+    want = np.asarray(jtnfr.build_receptors(jnp.asarray(xy),
+                                            jnp.asarray(ps), jc))
+    got = ttnfr.build_receptors(torch.from_numpy(xy), torch.from_numpy(ps),
+                                cfg).numpy()
+    assert got.shape == (4, 16, 4, 4, 3)
+    assert_within_ulp(got, want)
+    want = np.asarray(jtnfr.build_ligands(*map(jnp.asarray,
+                                                (c3, th, ph, ps)), jc))
+    got = ttnfr.build_ligands(*map(torch.from_numpy, (c3, th, ph, ps)),
+                              cfg).numpy()
+    assert got.shape == (4, 16, 4, 4, 3)
+    assert_within_ulp(got, want)
+
+
 def test_align_angle_2d():
     a, b = _rand(10, (256, 2)), _rand(11, (256, 2))
     b[:4] = 0.0                                  # dot == 0 branch

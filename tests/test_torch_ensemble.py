@@ -128,7 +128,9 @@ def test_port_imports_no_jax():
             "kmc_tpu_torch.lattice.grid, kmc_tpu_torch.lattice.step, "
             "kmc_tpu_torch.lattice.io, kmc_tpu_torch.lattice.mapping, "
             "kmc_tpu_torch.lattice.rejection_free, "
-            "kmc_tpu_torch.engine.params, kmc_tpu_torch.utils.profiling; "
+            "kmc_tpu_torch.engine.params, kmc_tpu_torch.utils.profiling, "
+            "kmc_tpu_torch.parallel.mesh, kmc_tpu_torch.parallel.distributed, "
+            "kmc_tpu_torch.parallel.halo, kmc_tpu_torch.parallel.launch; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'kmc_tpu' or "
             "m.startswith('kmc_tpu.')]; print(bad); "

@@ -359,6 +359,55 @@ def test_lattice_kernel_offset_block_matches_plain():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 2), (4, 1), (1, 1)])
+def test_lattice_kernel_on_halo_blocks_matches_plain(shape):
+    """K3 on the halo-padded blocks of a grid cut over a rank grid, each
+    at its negative global origin with full != block (on 1 x 1 the block
+    is larger than the grid, as on one card's shard): every padded output
+    equals the plain version's, and the cropped blocks put together equal
+    whole-grid K3, every step, all 8 variants seen."""
+    from kmc_tpu_torch.testing import step_halo_blocks
+
+    dev = _cuda()
+    cfg = LatticeConfig(height=64, width=64, **DENSE)
+    st = init_lattice(cfg, seed=12, device=dev)
+    seen = set()
+    for i in range(64):
+        seen.add(step_variant(st))
+        before = k3.lattice_block_call.launches
+        grid, disp, outs = step_halo_blocks(st, cfg, shape,
+                                            k3.lattice_block_call)
+        assert k3.lattice_block_call.launches == before + len(outs)
+        _, _, plain = step_halo_blocks(st, cfg, shape, lattice_step_arrays)
+        for (g, d), (pg, pd) in zip(outs, plain):
+            assert torch.equal(g, pg) and torch.equal(d, pd), i
+        st = k3.pallas_lattice_step(st, cfg)
+        assert torch.equal(grid, st.grid) and torch.equal(disp, st.disp), i
+    assert seen == ALL_VARIANTS
+
+
+@pytest.mark.gpu
+def test_sharded_lattice_step_on_card_matches_whole_grid():
+    """make_sharded_lattice_step on one rank (a 1 x 1 grid) launches K3
+    once a step on the padded block and equals the whole-grid chunk."""
+    from kmc_tpu_torch.lattice.step import make_sharded_lattice_step
+    from kmc_tpu_torch.parallel.halo import gather_lattice, shard_lattice
+    from kmc_tpu_torch.parallel.mesh import grid_mesh
+
+    dev = _cuda()
+    cfg = LatticeConfig(height=96, width=64, **DENSE)
+    mesh = grid_mesh((1, 1), dev)
+    st = init_lattice(cfg, seed=6, device=dev)
+    want = k3.make_pallas_lattice_chunk(cfg, 40)(st)
+    step = make_sharded_lattice_step(cfg, mesh, chunk=20)
+    before = k3.lattice_block_call.launches
+    got = gather_lattice(step(step(shard_lattice(st, cfg, mesh))), cfg, mesh)
+    assert k3.lattice_block_call.launches == before + 40
+    for f in want._fields:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.gpu
 def test_lattice_card_matches_cpu():
     """K3 steps on the card equal the plain version on the CPU."""
     dev = _cuda()
