@@ -113,7 +113,18 @@ with the seconds since start:
     calls (CUDA events around the calls), and one profiler trace of the
     sharded call split by the halo module's ranges (pad, ghost refresh,
     crop) and by kernel (K3, NCCL); the sharded ensemble CLI's
-    replica-steps/s after its first output against one rank on one card.
+    replica-steps/s after its first output against one rank on one card;
+23. validation driver: kmc_tpu_torch.scripts.validate_vs_reference
+    kinetics at SimConfig(out_every=50) (run_config replaced inside the
+    phase), 256 replicas, lazy, with histograms, against the oracle files
+    of ref_data/ (rows 1-2; 50 steps are not an oracle row, so the
+    report's verdict is printed, not gated): 2 outputs uninterrupted, K1
+    once a step and K2, K3 never; a run cut after output 1 and resumed
+    from its state file equal to it bitwise (series, histograms, final
+    state); --report-only equal to the in-run report; the ported
+    check_flagship_state passing on every replica; and the lazy step at
+    256 replicas timed with CUDA events over 20 steps after 2 warm-ups,
+    with the minutes an oracle row (5,000 steps) it implies.
 
 Each phase of a path sets every launch count to 0 before it runs the path
 and reads the counts just after.  The last three lines are one JSON
@@ -175,6 +186,13 @@ RF_BATCH_SIZE, RF_BATCH_PARTICLES, RF_BATCH_CALLS, RF_K = 128, 1200, 40, 64
 RF_CHUNK, RF_BATCHES = 1000, 100
 SWEEP_GROUPS, SWEEP_STEPS = 8, 5
 HALO_BIG_STEPS, HALO_TIME_STEPS = 16, 10
+VAL_REPLICAS, VAL_OUT_EVERY, VAL_SUB_CHUNKS, ORACLE_ROW_STEPS = 256, 50, 5, 5000
+VAL_REF_BOND = [os.path.join("ref_data", f"refgolden{i}_bond.dat")
+                for i in ("", "2")]
+VAL_REF_CLUSTER = [os.path.join("ref_data", f"refgolden{i}_cluster.log")
+                   for i in ("", "2")]
+# keys of the validation report that differ between two runs of one state
+VAL_RUN_KEYS = ("seconds", "report_only_at_rows")
 RANK_TIMEOUT = 600     # seconds a spawn of ranks may take before it fails
 WORK = ""              # this run's temporary directory, made by main
 PASS_DEPTHS = (1, 2, 4, 8, 12)   # seed 1 runs align_depth passes at each
@@ -1339,6 +1357,122 @@ def multi_device_phases(dev, ens_dir, ens_sec):
     return {"launches": reports[0]["k3"]}
 
 
+def validation_report(argv):
+    """validate_vs_reference.main(argv) in this process: (rc, report)."""
+    from kmc_tpu_torch.scripts import validate_vs_reference as vv
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = vv.main(argv)
+    torch_sync()
+    return rc, json.loads(buf.getvalue())
+
+
+def same_state_files(a, b) -> list[str]:
+    """Keys of two validation state files that differ (wall_s aside)."""
+    import numpy as np
+
+    with np.load(a) as za, np.load(b) as zb:
+        keys = sorted((set(za.files) | set(zb.files)) - {"wall_s"})
+        return [k for k in keys if (
+            k not in za.files or k not in zb.files
+            or not np.array_equal(za[k], zb[k]))]
+
+
+def validation_phase(dev, k1, k2):
+    """Phase 23: the oracle validation driver at SimConfig(out_every=50),
+    256 lazy replicas with histograms; returns the K1 launches of its
+    uninterrupted run."""
+    import numpy as np
+    from kmc_tpu_torch import SimConfig, make_lazy_ensemble_chunk
+    from kmc_tpu_torch.parallel.ensemble import default_k_align
+    from kmc_tpu_torch.scripts import check_flagship_state as cf
+    from kmc_tpu_torch.scripts import validate_vs_reference as vv
+
+    cfg = SimConfig(out_every=VAL_OUT_EVERY)
+    d = os.path.join(WORK, "validation")
+    os.makedirs(d)
+    whole, cut = os.path.join(d, "whole.npz"), os.path.join(d, "cut.npz")
+    base = ["kinetics", "--ref-bond", *VAL_REF_BOND, "--ref-cluster",
+            *VAL_REF_CLUSTER, "--replicas", str(VAL_REPLICAS), "--seed", "0",
+            "--align-mode", "lazy", "--sub-chunks", str(VAL_SUB_CHUNKS),
+            "--device", DEVICE]
+    saved, vv.run_config = vv.run_config, lambda: cfg
+    cwd = os.getcwd()
+    os.chdir(REPO)
+    try:
+        reset_counts(k1, k2)
+        t = time.perf_counter()
+        _, rep = validation_report(base + [
+            "--max-rows", "2", "--state-file", whole, "--invariants"])
+        sec = time.perf_counter() - t
+        k1_n, k1_reps = k1.launches, k1.replicas
+        others = k2.launches + k3_wrapper().launches
+        steps = 2 * VAL_OUT_EVERY
+        cols = "; ".join(
+            f"oracle {i + 1}: " + ", ".join(
+                f"{c} {v.get('coverage', 'n/a')}"
+                for c, v in run["columns"].items())
+            for i, run in enumerate(rep["kinetics_runs"]))
+        log("validation driver", f"2 outputs of {VAL_OUT_EVERY} steps at "
+            f"{VAL_REPLICAS} lazy replicas with histograms: {sec:.2f} s; "
+            f"K1 launches {k1_n} aligning {k1_reps} replicas in {steps} "
+            f"steps, K2 + K3 launches {others}; report against oracle rows "
+            f"1-2 ({VAL_OUT_EVERY} steps are not an oracle row, not gated): ok="
+            f"{rep['ok']}; coverage {cols}; invariants ok="
+            f"{rep['invariants']['ok']}; device {rep['device']}")
+        if k1_n != steps or others != 0:
+            fail(f"validation driver: K1 launched {k1_n} times in {steps} "
+                 f"steps, K2 + K3 {others} times")
+        if rep["n_out"] != 2 or not rep["invariants"]["ok"]:
+            fail(f"validation driver: {rep['n_out']} rows, invariants "
+                 f"{rep['invariants']}")
+
+        validation_report(base + ["--max-rows", "1", "--state-file", cut])
+        validation_report(base + ["--max-rows", "2", "--state-file", cut,
+                                  "--resume-state"])
+        diff = same_state_files(whole, cut)
+        with np.load(cut) as z:
+            k_cut = int(z["k_done"])
+        if diff or k_cut != 2:
+            fail(f"validation driver: the run cut after output 1 and "
+                 f"resumed differs from the uninterrupted run in {diff} "
+                 f"(k_done {k_cut})")
+        _, again = validation_report(base + [
+            "--max-rows", "2", "--state-file", whole, "--report-only",
+            "--invariants"])
+        strip = lambda r: {k: v for k, v in r.items()
+                           if k not in VAL_RUN_KEYS}
+        if strip(again) != strip(rep):
+            fail("validation driver: --report-only differs from the in-run "
+                 "report")
+        inv = cf.check_state(whole, dev)
+        if not inv["ok"] or inv["replicas"] != VAL_REPLICAS:
+            fail(f"check_flagship_state: {inv}")
+        log("validation driver", f"cut after output 1 and resumed: state "
+            f"file equal to the uninterrupted run's in every key (series, "
+            f"histograms, all {VAL_REPLICAS} replicas' state); --report-only "
+            f"equals the in-run report; check_flagship_state ok on "
+            f"{inv['replicas']} replicas at step {inv['steps_per_replica']}")
+
+        with np.load(whole) as z:
+            state = vv.load_state(z, dev)
+        one = make_lazy_ensemble_chunk(cfg, 1, device=dev)
+        holder = [state]
+        ms = cuda_time_ms(lambda: holder.append(one(holder.pop())[0]),
+                          iters=TIMED, warmup=WARMUP)
+        row_min = ms * ORACLE_ROW_STEPS / 60e3
+        log("validation driver", f"lazy step at {VAL_REPLICAS} replicas "
+            f"(k_align {default_k_align(VAL_REPLICAS)}): {ms:.3f} ms a step "
+            f"(CUDA events, {TIMED} steps after {WARMUP} warm-ups) -> "
+            f"{row_min:.3f} chip-minutes an oracle row of "
+            f"{ORACLE_ROW_STEPS} steps")
+    finally:
+        vv.run_config = saved
+        os.chdir(cwd)
+    return k1_n
+
+
 def main() -> int:
     import torch
 
@@ -1641,12 +1775,17 @@ def main() -> int:
         "lattice CLI": k3_entry["launches"],
         "make_sharded_lattice_step, rank 0": k3_shard["launches"]})
 
+    # ---- 23. the oracle validation driver ----
+    val_launches = validation_phase(dev, k1, k2)
+
     print(json.dumps({"kernels": [{
         "name": "align_batched",
         "route": "cuda",
         "source": "kmc_tpu_torch/csrc/align_batched.cu",
         "replaces": "kmc_tpu/ops/pallas_align_batched.py:106",
         "launches": launches,
+        "launches_by_path": {"lazy main path": launches,
+                             "validation driver": val_launches},
         "max_abs_err": max_err,
         "ms": k1_ms,
         "plain_ms": plain_ms,

@@ -510,3 +510,39 @@ def test_sweep_step_on_card_matches_cpu():
                 assert float((got - getattr(want, f)).abs().max()) <= POS_TOL
             else:
                 assert torch.equal(got, getattr(want, f)), (f, i)
+
+
+@pytest.mark.gpu
+def test_validation_driver_on_card_matches_cpu(tmp_path, monkeypatch):
+    """The validation driver's lazy ensemble (SMALL, 8 replicas, 2 outputs
+    of 10 steps) gives the CPU's kinetics series and histograms on the
+    card, and the card's state file cut after output 1 resumes on the CPU
+    to the same series."""
+    import types
+
+    import numpy as np
+
+    from kmc_tpu_torch.scripts import validate_vs_reference as vv
+
+    dev = _cuda()
+    monkeypatch.setattr(vv, "run_config", lambda: SMALL.replace(out_every=10))
+
+    def run(device, n_out, state_file=None):
+        args = types.SimpleNamespace(
+            replicas=8, seed=0, sub_chunks=2, align_mode="lazy",
+            init_cpt=None, write_outputs=None, state_file=state_file,
+            resume_state=True, device=device)
+        return vv._run_ensemble(args, n_out, with_hist=True)
+
+    before = align_batched.align_core_batched.launches
+    card = run(dev.type, 2)
+    assert align_batched.align_core_batched.launches == before + 20
+    cpu = run("cpu", 2)
+    sf = str(tmp_path / "state.npz")
+    run(dev.type, 1, sf)
+    resumed = run("cpu", 2, sf)
+    for other in (cpu, resumed):
+        for c in vv.KIN_COLS:
+            np.testing.assert_array_equal(card[0][c], other[0][c], c)
+        np.testing.assert_array_equal(card[1], other[1])
+        np.testing.assert_array_equal(card[2], other[2])
