@@ -124,7 +124,8 @@ with the seconds since start:
     state); --report-only equal to the in-run report; the ported
     check_flagship_state passing on every replica; and the lazy step at
     256 replicas timed with CUDA events over 20 steps after 2 warm-ups,
-    with the minutes an oracle row (5,000 steps) it implies.
+    with the minutes an oracle row (5,000 steps) it implies, and one step
+    under the profiler (device time, launches, busy share).
 
 Each phase of a path sets every launch count to 0 before it runs the path
 and reads the counts just after.  The last three lines are one JSON
@@ -186,7 +187,8 @@ RF_BATCH_SIZE, RF_BATCH_PARTICLES, RF_BATCH_CALLS, RF_K = 128, 1200, 40, 64
 RF_CHUNK, RF_BATCHES = 1000, 100
 SWEEP_GROUPS, SWEEP_STEPS = 8, 5
 HALO_BIG_STEPS, HALO_TIME_STEPS = 16, 10
-VAL_REPLICAS, VAL_OUT_EVERY, VAL_SUB_CHUNKS, ORACLE_ROW_STEPS = 256, 50, 5, 5000
+VAL_REPLICAS, VAL_OUT_EVERY, VAL_SUB_CHUNKS = 256, 50, 5
+ORACLE_ROW_STEPS = 5000           # out_every of SimConfig(): one oracle row
 VAL_REF_BOND = [os.path.join("ref_data", f"refgolden{i}_bond.dat")
                 for i in ("", "2")]
 VAL_REF_CLUSTER = [os.path.join("ref_data", f"refgolden{i}_cluster.log")
@@ -1418,8 +1420,8 @@ def validation_phase(dev, k1, k2):
             f"{VAL_REPLICAS} lazy replicas with histograms: {sec:.2f} s; "
             f"K1 launches {k1_n} aligning {k1_reps} replicas in {steps} "
             f"steps, K2 + K3 launches {others}; report against oracle rows "
-            f"1-2 ({VAL_OUT_EVERY} steps are not an oracle row, not gated): ok="
-            f"{rep['ok']}; coverage {cols}; invariants ok="
+            f"1-2 ({VAL_OUT_EVERY} steps are not an oracle row, not gated): "
+            f"ok={rep['ok']}; coverage {cols}; invariants ok="
             f"{rep['invariants']['ok']}; device {rep['device']}")
         if k1_n != steps or others != 0:
             fail(f"validation driver: K1 launched {k1_n} times in {steps} "
@@ -1462,11 +1464,18 @@ def validation_phase(dev, k1, k2):
         ms = cuda_time_ms(lambda: holder.append(one(holder.pop())[0]),
                           iters=TIMED, warmup=WARMUP)
         row_min = ms * ORACLE_ROW_STEPS / 60e3
+        rows, wall = profile_kernels(
+            lambda: holder.append(one(holder.pop())[0]))
+        dev_ms = sum(r[1] for r in rows) / 1e3
+        busy = (f"{dev_ms:.2f} ms of device time in {sum(r[2] for r in rows)}"
+                f" launches, busy {100 * dev_ms / (wall * 1e3):.1f} % of "
+                f"{wall * 1e3:.1f} ms" if dev_ms > 0 else
+                "device time not measured (the profiler saw no kernel)")
         log("validation driver", f"lazy step at {VAL_REPLICAS} replicas "
             f"(k_align {default_k_align(VAL_REPLICAS)}): {ms:.3f} ms a step "
             f"(CUDA events, {TIMED} steps after {WARMUP} warm-ups) -> "
             f"{row_min:.3f} chip-minutes an oracle row of "
-            f"{ORACLE_ROW_STEPS} steps")
+            f"{ORACLE_ROW_STEPS} steps; one step under the profiler: {busy}")
     finally:
         vv.run_config = saved
         os.chdir(cwd)

@@ -295,7 +295,9 @@ def _run_ensemble(args, n_out, with_hist, on_progress=None):
     # one output interval = several chunks, so progress and a stop by
     # --time-limit come at a fine grain
     sub = max(int(getattr(args, "sub_chunks", 10)), 1)
-    assert cfg.out_every % sub == 0, (cfg.out_every, sub)
+    if cfg.out_every % sub:
+        raise ValueError(f"--sub-chunks {sub} does not divide out_every "
+                         f"{cfg.out_every}")
     chunk = maker(cfg, cfg.out_every // sub, device=dev)
 
     # persist (state, series) every output, so a stopped run resumes at
@@ -556,8 +558,9 @@ def cmd_kinetics(args):
         anchor_t = anchor_step * cfg.time_step
         skip = int(np.sum(refs[0][:, 0] <= anchor_t + 1e-6))
         for r in refs[1:]:
-            assert int(np.sum(r[:, 0] <= anchor_t + 1e-6)) == skip, \
-                "oracle runs disagree on anchor row (different cadences?)"
+            if int(np.sum(r[:, 0] <= anchor_t + 1e-6)) != skip:
+                raise ValueError("oracle runs disagree on anchor row "
+                                 "(different cadences?)")
         print(f"# anchor t={anchor_t:.0f} ns -> skipping {skip} oracle rows",
               file=sys.stderr, flush=True)
 
@@ -658,7 +661,7 @@ def cmd_kinetics(args):
 
         kin, hist_ens, ahist_ens = _run_ensemble(
             args, n_out, with_hist=bool(cpaths), on_progress=on_progress)
-        k_done = len(kin[KIN_COLS[0]])
+        k_done = min(len(kin[KIN_COLS[0]]), n_out)
         report = build_report(kin, hist_ens, ahist_ens, k_done)
     report["rows_asked"] = n_out
     if k_done < n_out:

@@ -17,6 +17,10 @@ package's scripts/ on the same inputs, on the CPU.
   package's file resumes in the other's _run_ensemble to the same
   series; --report-only equals the in-run report; both packages'
   check_flagship_state pass on the port's file.
+* cmd_kinetics end to end (an anchor continuation, --skip-initial, both
+  oracles) gives kmc_tpu's report; a pre-round-5 state file resumes with
+  the same NaN padding; the partial report comes every 10 outputs;
+  --time-limit stops at an output boundary.
 * main() without --device cpu raises here before it writes anything.
 
 The scripts are imported from scripts/ as tests/test_validation_tools.py
@@ -38,9 +42,8 @@ import torch
 
 from kmc_tpu.config import SimConfig as JConfig
 from kmc_tpu_torch.config import SimConfig as TConfig
-from kmc_tpu_torch.parallel.ensemble import init_ensemble
 from kmc_tpu_torch.io.writers import EnsembleOutputSet
-from kmc_tpu_torch.parallel.ensemble import make_ensemble_chunk
+from kmc_tpu_torch.parallel.ensemble import init_ensemble, make_ensemble_chunk
 from kmc_tpu_torch.scripts import check_flagship_state as pcf
 from kmc_tpu_torch.scripts import validate_vs_reference as pv
 
@@ -314,6 +317,65 @@ def test_state_file_resumes_across_packages(direction, tmp_path, jax_lazy):
         assert int(z["k_done"]) == N_OUT and int(z["n_leaf"]) == 13
 
 
+def test_pre_r5_state_file_resumes_with_nan_padding(tmp_path):
+    """A state file with 4 kinetics columns and no receptor histograms
+    (the layout before round 5) resumes in both packages to the same
+    series, the missing rows NaN."""
+    sf, old = str(tmp_path / "state.npz"), str(tmp_path / "old.npz")
+    run_port(DENSE, 1, align_mode="lazy", state_file=sf)
+    with np.load(sf) as z:
+        arrs = {k: z[k] for k in z.files if k not in ("ahists", "wall_s")}
+    arrs["kin"] = arrs["kin"][:, :4]
+    runs = []
+    for run in (run_port, run_jax):
+        with open(old, "wb") as f:
+            np.savez(f, **arrs)
+        runs.append(run(DENSE, N_OUT, align_mode="lazy", state_file=old))
+    assert_same_series(*runs)
+    kin, _, ahist = runs[0]
+    assert np.isnan(kin["cluster_size"][0]).all()
+    assert not np.isnan(kin["cluster_size"][1:]).any()
+    assert np.isnan(ahist[0]).all() and not np.isnan(ahist[1:]).any()
+
+
+def test_cmd_kinetics_report_matches_jax(tmp_path):
+    """cmd_kinetics end to end in both packages: an anchor continuation
+    from tests/data/ref_position.cpt (step 1,425,000: 285 oracle rows
+    skipped), --skip-initial 1, 3 rows, lazy, both oracles' bond.dat and
+    cluster.log: the same exit code and a JSON-equal report, the port's
+    own keys aside."""
+    common = dict(
+        ref_bond=[os.path.join(REF, f"refgolden{i}_bond.dat")
+                  for i in ("", "2")],
+        ref_cluster=[os.path.join(REF, f"refgolden{i}_cluster.log")
+                     for i in ("", "2")],
+        replicas=4, seed=0, quantile=0.995, min_coverage=0.9, max_rows=3,
+        sub_chunks=1, align_mode="lazy", init_cpt=REF_CPT,
+        write_outputs=None, resume_state=False, skip_initial=1,
+        report_only=False)
+    reports, codes = [], []
+    for mod, cfg in ((pv, TConfig(**ANCHOR)), (jv, JConfig(**ANCHOR))):
+        out = str(tmp_path / f"{mod.__name__}.json")
+        args = types.SimpleNamespace(
+            **common, out=out, state_file=str(tmp_path / f"{id(mod)}.npz"),
+            device="cpu", time_limit=0, invariants=False)
+        with pytest.MonkeyPatch.context() as m, \
+                contextlib.redirect_stdout(io.StringIO()):
+            m.setattr(mod, "run_config", lambda cfg=cfg: cfg)
+            codes.append(mod.cmd_kinetics(args))
+        with open(out) as f:
+            reports.append(json.load(f))
+    port, want = reports
+    assert port.pop("device") == "cpu" and port.pop("seconds") > 0
+    assert port.pop("rows_asked") == 3
+    assert port.pop("ensemble_seconds_all_runs") > 0
+    assert want["anchor"]["skipped_rows"] == 285
+    assert want["skip_initial_burn_in_rows"] == 1
+    assert json.dumps(port, sort_keys=True) == json.dumps(want,
+                                                          sort_keys=True)
+    assert codes[0] == codes[1]
+
+
 def _main_report(argv):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -346,6 +408,22 @@ def test_report_only_equals_in_run_report(tmp_path, monkeypatch):
     assert len(run["kinetics_runs"]) == 2
     assert len(run["clusters_runs"]) == len(run["receptor_oligomer_runs"]) == 2
     assert set(run["kinetics_runs"][0]["columns"]) == set(pv.KIN_COLS)
+
+
+def test_partial_report_every_ten_outputs(tmp_path, monkeypatch):
+    cfg = dict(DENSE, out_every=2)
+    monkeypatch.setattr(pv, "run_config", lambda: TConfig(**cfg))
+    out = str(tmp_path / "report.json")
+    rc, rep = _main_report([
+        "kinetics", "--ref-bond", os.path.join(REF, "refgolden_bond.dat"),
+        "--replicas", "4", "--max-rows", "10", "--sub-chunks", "1",
+        "--device", "cpu", "--out", out])
+    with open(out + ".partial") as f:
+        partial = json.load(f)
+    assert partial.pop("partial") is True and "partial" not in rep
+    assert partial["n_out"] == rep["n_out"] == 10
+    assert partial["kinetics_runs"] == rep["kinetics_runs"]
+    assert not os.path.exists(out + ".partial.tmp")
 
 
 def test_time_limit_stops_between_outputs(tmp_path, monkeypatch):
