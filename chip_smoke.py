@@ -1474,7 +1474,7 @@ def validation_phase(dev, k1, k2):
         log("validation driver", f"lazy step at {VAL_REPLICAS} replicas "
             f"(k_align {default_k_align(VAL_REPLICAS)}): {ms:.3f} ms a step "
             f"(CUDA events, {TIMED} steps after {WARMUP} warm-ups) -> "
-            f"{row_min:.3f} chip-minutes an oracle row of "
+            f"{row_min:.3f} GPU-minutes an oracle row of "
             f"{ORACLE_ROW_STEPS} steps; one step under the profiler: {busy}")
     finally:
         vv.run_config = saved
