@@ -119,7 +119,10 @@ with the seconds since start:
     phase), 256 replicas, lazy, with histograms, against the oracle files
     of ref_data/ (rows 1-2; 50 steps are not an oracle row, so the
     report's verdict is printed, not gated): 2 outputs uninterrupted, K1
-    once a step and K2, K3 never; a run cut after output 1 and resumed
+    once a step and K2, K3 never; every K1 call of that run (B = 32)
+    bitwise equal to the plain version on the inputs the run gave it; the
+    report's device equal to nvidia-smi's line; a run cut after output 1
+    and resumed
     from its state file equal to it bitwise (series, histograms, final
     state); --report-only equal to the in-run report; the ported
     check_flagship_state passing on every replica; and the lazy step at
@@ -1384,9 +1387,12 @@ def same_state_files(a, b) -> list[str]:
 def validation_phase(dev, k1, k2):
     """Phase 23: the oracle validation driver at SimConfig(out_every=50),
     256 lazy replicas with histograms; returns the K1 launches of its
-    uninterrupted run."""
+    uninterrupted run and K1's max abs error on that run's own inputs
+    against the plain version."""
     import numpy as np
+    import torch
     from kmc_tpu_torch import SimConfig, make_lazy_ensemble_chunk
+    from kmc_tpu_torch.ops import align_batched
     from kmc_tpu_torch.parallel.ensemble import default_k_align
     from kmc_tpu_torch.scripts import check_flagship_state as cf
     from kmc_tpu_torch.scripts import validate_vs_reference as vv
@@ -1399,14 +1405,28 @@ def validation_phase(dev, k1, k2):
             *VAL_REF_CLUSTER, "--replicas", str(VAL_REPLICAS), "--seed", "0",
             "--align-mode", "lazy", "--sub-chunks", str(VAL_SUB_CHUNKS),
             "--device", DEVICE]
+    captured = []     # (inputs, outputs) of every K1 call of the run
+
+    wrapper = align_batched.align_core_batched
+
+    def recording(*a):
+        args = tuple(x.clone() for x in a[:-1])
+        outs = wrapper(*a)
+        captured.append((args, tuple(o.clone() for o in outs)))
+        return outs
+
     saved, vv.run_config = vv.run_config, lambda: cfg
     cwd = os.getcwd()
     os.chdir(REPO)
     try:
+        align_batched.align_core_batched = recording
         reset_counts(k1, k2)
         t = time.perf_counter()
-        _, rep = validation_report(base + [
-            "--max-rows", "2", "--state-file", whole, "--invariants"])
+        try:
+            _, rep = validation_report(base + [
+                "--max-rows", "2", "--state-file", whole, "--invariants"])
+        finally:
+            align_batched.align_core_batched = wrapper
         sec = time.perf_counter() - t
         k1_n, k1_reps = k1.launches, k1.replicas
         others = k2.launches + k3_wrapper().launches
@@ -1429,6 +1449,28 @@ def validation_phase(dev, k1, k2):
         if rep["n_out"] != 2 or not rep["invariants"]["ok"]:
             fail(f"validation driver: {rep['n_out']} rows, invariants "
                  f"{rep['invariants']}")
+        if DEVICE == "cuda" and rep["device"] != CARD:
+            fail(f"validation driver: the report names the device "
+                 f"{rep['device']!r}, nvidia-smi {CARD!r}")
+
+        # K1 against its plain version on the inputs this path gave it
+        batch = min(default_k_align(VAL_REPLICAS), VAL_REPLICAS)
+        sizes = sorted({a[0].shape[0] for a, _ in captured})
+        if len(captured) != steps or sizes != [batch]:
+            fail(f"validation driver: {len(captured)} K1 calls of batch "
+                 f"sizes {sizes} captured, {steps} of {batch} expected")
+        k1_err, passes = 0.0, []
+        for i, (args, got) in enumerate(captured):
+            want = align_batched.align_core_batched_plain(*args, cfg)
+            k1_err = max(k1_err, compare_core(
+                got, want, f"K1 validation call {i + 1} of {steps}",
+                exact=True))
+            passes.append(core_passes(args, cfg))
+        log("validation driver", f"K1 on this path's own inputs: all "
+            f"{len(captured)} calls of the run (B = {batch}) bitwise equal "
+            f"to the plain version; passes "
+            f"{pass_summary(torch.cat(passes))}")
+        captured.clear()
 
         validation_report(base + ["--max-rows", "1", "--state-file", cut])
         validation_report(base + ["--max-rows", "2", "--state-file", cut,
@@ -1479,7 +1521,7 @@ def validation_phase(dev, k1, k2):
     finally:
         vv.run_config = saved
         os.chdir(cwd)
-    return k1_n
+    return k1_n, k1_err
 
 
 def main() -> int:
@@ -1785,7 +1827,7 @@ def main() -> int:
         "make_sharded_lattice_step, rank 0": k3_shard["launches"]})
 
     # ---- 23. the oracle validation driver ----
-    val_launches = validation_phase(dev, k1, k2)
+    val_launches, val_err = validation_phase(dev, k1, k2)
 
     print(json.dumps({"kernels": [{
         "name": "align_batched",
@@ -1795,7 +1837,7 @@ def main() -> int:
         "launches": launches,
         "launches_by_path": {"lazy main path": launches,
                              "validation driver": val_launches},
-        "max_abs_err": max_err,
+        "max_abs_err": max(max_err, val_err),
         "ms": k1_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,

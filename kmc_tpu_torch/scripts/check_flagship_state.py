@@ -5,7 +5,7 @@ of a persisted validation ensemble state (port of the JAX package's
 clusters, counters consistent.  The state file is the validation driver's
 (either package's; ``validate_vs_reference.py --state-file``), read with
 the driver's ``run_config()``.  The checks run on ``--device`` (the card
-unless ``cpu`` is given) in batches of ``--batch`` replicas.
+unless ``cpu`` is given) in batches of ``BATCH`` replicas.
 
 Usage: python -m kmc_tpu_torch.scripts.check_flagship_state \\
            --state validation_torch/state.npz [--out INVARIANTS.json]
@@ -22,8 +22,10 @@ import torch
 
 from kmc_tpu_torch.scripts import validate_vs_reference as vv
 
+BATCH = 64      # replicas checked at once
 
-def check_state(path: str, device=None, batch: int = 64) -> dict:
+
+def check_state(path: str, device=None, batch: int = BATCH) -> dict:
     """The report of the three checks over every replica of ``path``."""
     from kmc_tpu_torch.state import resolve_device, take_replicas
     from kmc_tpu_torch.utils.checks import (
@@ -63,10 +65,8 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the checks run; cuda raises without a card")
-    ap.add_argument("--batch", type=int, default=64,
-                    help="replicas checked at once")
     args = ap.parse_args(argv)
-    report = check_state(args.state, args.device, args.batch)
+    report = check_state(args.state, args.device)
     txt = json.dumps(report, indent=1)
     print(txt)
     if args.out:

@@ -244,18 +244,27 @@ def load_state(z, device):
 
 
 def device_label(dev) -> str:
-    """The card's ``nvidia-smi`` name and power limit, or "cpu"."""
+    """The card's ``nvidia-smi`` name and power limit, or "cpu".  The card
+    is found by its UUID: nvidia-smi lists every card of the host, whatever
+    ``CUDA_VISIBLE_DEVICES`` leaves to this process."""
     dev = torch.device(dev)
     if dev.type != "cuda":
         return "cpu"
+    norm = lambda u: u.strip().lower().removeprefix("gpu-")
+    uuid = norm(str(getattr(torch.cuda.get_device_properties(dev), "uuid",
+                            "")))
     try:
         out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
+            ["nvidia-smi", "--query-gpu=uuid,name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             timeout=30, check=True).stdout.strip().splitlines()
-        return out[dev.index or 0].strip()
-    except (OSError, subprocess.SubprocessError, IndexError):
-        return f"{torch.cuda.get_device_name(dev)}, power limit not read"
+    except (OSError, subprocess.SubprocessError):
+        out = []
+    for line in out:
+        smi_uuid, _, label = line.partition(",")
+        if uuid and norm(smi_uuid) == uuid:
+            return label.strip()
+    return f"{torch.cuda.get_device_name(dev)}, power limit not read"
 
 
 def _run_ensemble(args, n_out, with_hist, on_progress=None):

@@ -454,3 +454,30 @@ def test_main_without_a_card_raises_before_writing(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         pcf.main(["--state", sf])
     assert os.listdir(tmp_path) == []
+
+
+def test_device_label_picks_the_card_by_uuid(monkeypatch):
+    """nvidia-smi lists every card of the host; the report names the one
+    the process runs on (here the host's second card, the process's cuda:0),
+    not the line at the process's device index."""
+    smi = ("GPU-aaaaaaaa-0000-0000-0000-000000000000, NVIDIA H100 80GB HBM3, "
+           "700.00 W\n"
+           "GPU-BBBBBBBB-1111-1111-1111-111111111111, NVIDIA H100 PCIe, "
+           "350.00 W\n")
+    seen = {}
+
+    def run(cmd, **kw):
+        seen["cmd"] = cmd
+        return types.SimpleNamespace(stdout=smi)
+
+    monkeypatch.setattr(pv.subprocess, "run", run)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: types.SimpleNamespace(
+                            uuid="bbbbbbbb-1111-1111-1111-111111111111"))
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda d: "card")
+    assert pv.device_label("cuda:0") == "NVIDIA H100 PCIe, 350.00 W"
+    assert "--query-gpu=uuid,name,power.limit" in seen["cmd"]
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda d: types.SimpleNamespace(uuid="cccc"))
+    assert pv.device_label("cuda:0") == "card, power limit not read"
+    assert pv.device_label("cpu") == "cpu"
