@@ -1415,12 +1415,16 @@ def validation_phase(dev, k1, k2):
         captured.append((args, tuple(o.clone() for o in outs)))
         return outs
 
+    # the wrapper counts through its module-level name, so while the
+    # recorder stands in under that name the counts land on the recorder
+    recording.launches = recording.replicas = 0
+
     saved, vv.run_config = vv.run_config, lambda: cfg
     cwd = os.getcwd()
     os.chdir(REPO)
     try:
-        align_batched.align_core_batched = recording
         reset_counts(k1, k2)
+        align_batched.align_core_batched = recording
         t = time.perf_counter()
         try:
             _, rep = validation_report(base + [
@@ -1428,6 +1432,7 @@ def validation_phase(dev, k1, k2):
         finally:
             align_batched.align_core_batched = wrapper
         sec = time.perf_counter() - t
+        k1.launches, k1.replicas = recording.launches, recording.replicas
         k1_n, k1_reps = k1.launches, k1.replicas
         others = k2.launches + k3_wrapper().launches
         steps = 2 * VAL_OUT_EVERY
