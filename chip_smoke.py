@@ -128,7 +128,20 @@ with the seconds since start:
     check_flagship_state passing on every replica; and the lazy step at
     256 replicas timed with CUDA events over 20 steps after 2 warm-ups,
     with the minutes an oracle row (5,000 steps) it implies, and one step
-    under the profiler (device time, launches, busy share).
+    under the profiler (device time, launches, busy share);
+24. validation scripts: kmc_tpu_torch.scripts.validate_lattice_physics
+    msd (config 2 at 512^2, 200 steps) and rates (128^2, 40 steps, then
+    the 50 early steps) through main(): K3 once a fixed-dt step, K1 and K2
+    never, each K3 chunk bitwise equal to the plain chunk on the card from
+    the same state, rates' hist_fixed_dt equal to the plain chunk's;
+    measure_residual_overlap for one chunk of 20 steps at 256 replicas: K1
+    once a step at B = 256, K2 and K3 never, every K1 call of the chunk
+    bitwise equal to the plain version on its own inputs; the count and
+    final state of 20 steps at 4 replicas equal on the card and the CPU
+    (integers bitwise, positions within 4 ulp of |x| or 1e-4 A);
+    its step timed with CUDA events (the minutes a committed run of 5,000
+    steps takes); early_cluster_size_check on validation_torch/state.npz
+    against both oracles, exit code 0, its report printed.
 
 Each phase of a path sets every launch count to 0 before it runs the path
 and reads the counts just after.  The last three lines are one JSON
@@ -181,6 +194,8 @@ LATTICE_STEPS, LATTICE_BIG, LATTICE_BIG_STEPS = 64, 8192, 4
 LAT_CLI_STEPS, LAT_CLI_RESUME, LAT_CLI_OUT_EVERY = 2000, 1000, 500
 LAT_MSD_STEPS, LAT_MSD_PARTICLES, LAT_SPACING = 1500, 10_000, 20.0
 POS_TOL, ANG_TOL = 1e-4, 1e-5
+POSE_FIELDS = ("a_xy", "a_psi", "b_center", "b_quat")
+POS_ULPS = 4      # card vs CPU positions at SimConfig(), in ulp of |x|
 REPLICAS, K_ALIGN, WARMUP, TIMED = 512, 64, 2, 20
 SINGLE_STEPS, SINGLE_RESUME, SINGLE_OUT_EVERY = 100, 150, 50
 ENS_STEPS, ENS_OUT_EVERY = 20, 10
@@ -198,6 +213,10 @@ VAL_REF_CLUSTER = [os.path.join("ref_data", f"refgolden{i}_cluster.log")
                    for i in ("", "2")]
 # keys of the validation report that differ between two runs of one state
 VAL_RUN_KEYS = ("seconds", "report_only_at_rows")
+SCRIPT_MSD_STEPS, SCRIPT_RATES_STEPS = 200, 40
+SCRIPT_RO_REPLICAS, SCRIPT_RO_STEPS, SCRIPT_RO_CPU_REPLICAS = 256, 20, 4
+SCRIPT_RO_FULL_STEPS = 10 * 500   # a committed residual-overlap run's steps
+SCRIPT_ECS_ROWS = 22
 RANK_TIMEOUT = 600     # seconds a spawn of ranks may take before it fails
 WORK = ""              # this run's temporary directory, made by main
 PASS_DEPTHS = (1, 2, 4, 8, 12)   # seed 1 runs align_depth passes at each
@@ -1362,15 +1381,69 @@ def multi_device_phases(dev, ens_dir, ens_sec):
     return {"launches": reports[0]["k3"]}
 
 
+def script_report(module, argv):
+    """``module.main(argv)`` of one of the port's scripts in this process:
+    (rc, the JSON report it prints)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    torch_sync()
+    return rc, json.loads(buf.getvalue())
+
+
 def validation_report(argv):
     """validate_vs_reference.main(argv) in this process: (rc, report)."""
     from kmc_tpu_torch.scripts import validate_vs_reference as vv
 
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = vv.main(argv)
-    torch_sync()
-    return rc, json.loads(buf.getvalue())
+    return script_report(vv, argv)
+
+
+@contextlib.contextmanager
+def recording_k1():
+    """K1's wrapper with a recorder standing in under its module-level
+    name; yields the list of (inputs, outputs) of every call.  The wrapper
+    counts through that name, so while the recorder stands in the counts
+    land on it; they are carried over to the wrapper at the end."""
+    from kmc_tpu_torch.ops import align_batched
+
+    wrapper = align_batched.align_core_batched
+    captured = []
+
+    def recording(*a):
+        args = tuple(x.clone() for x in a[:-1])
+        outs = wrapper(*a)
+        captured.append((args, tuple(o.clone() for o in outs)))
+        return outs
+
+    recording.launches = recording.replicas = 0
+    align_batched.align_core_batched = recording
+    try:
+        yield captured
+    finally:
+        align_batched.align_core_batched = wrapper
+        wrapper.launches = recording.launches
+        wrapper.replicas = recording.replicas
+
+
+def check_k1_calls(captured, cfg, calls, batch, what):
+    """Every recorded K1 call bitwise against the plain version on its own
+    inputs; ``calls`` calls of batch ``batch`` expected.  Returns (max abs
+    error, the passes of every call)."""
+    import torch
+    from kmc_tpu_torch.ops import align_batched
+
+    sizes = sorted({a[0].shape[0] for a, _ in captured})
+    if len(captured) != calls or sizes != [batch]:
+        fail(f"{what}: {len(captured)} K1 calls of batch sizes {sizes} "
+             f"captured, {calls} of {batch} expected")
+    err, passes = 0.0, []
+    for i, (args, got) in enumerate(captured):
+        want = align_batched.align_core_batched_plain(*args, cfg)
+        err = max(err, compare_core(got, want, f"K1 {what} call {i + 1} of "
+                                    f"{calls}", exact=True))
+        passes.append(core_passes(args, cfg))
+    captured.clear()
+    return err, torch.cat(passes)
 
 
 def same_state_files(a, b) -> list[str]:
@@ -1390,9 +1463,7 @@ def validation_phase(dev, k1, k2):
     uninterrupted run and K1's max abs error on that run's own inputs
     against the plain version."""
     import numpy as np
-    import torch
     from kmc_tpu_torch import SimConfig, make_lazy_ensemble_chunk
-    from kmc_tpu_torch.ops import align_batched
     from kmc_tpu_torch.parallel.ensemble import default_k_align
     from kmc_tpu_torch.scripts import check_flagship_state as cf
     from kmc_tpu_torch.scripts import validate_vs_reference as vv
@@ -1405,34 +1476,16 @@ def validation_phase(dev, k1, k2):
             *VAL_REF_CLUSTER, "--replicas", str(VAL_REPLICAS), "--seed", "0",
             "--align-mode", "lazy", "--sub-chunks", str(VAL_SUB_CHUNKS),
             "--device", DEVICE]
-    captured = []     # (inputs, outputs) of every K1 call of the run
-
-    wrapper = align_batched.align_core_batched
-
-    def recording(*a):
-        args = tuple(x.clone() for x in a[:-1])
-        outs = wrapper(*a)
-        captured.append((args, tuple(o.clone() for o in outs)))
-        return outs
-
-    # the wrapper counts through its module-level name, so while the
-    # recorder stands in under that name the counts land on the recorder
-    recording.launches = recording.replicas = 0
-
     saved, vv.run_config = vv.run_config, lambda: cfg
     cwd = os.getcwd()
     os.chdir(REPO)
     try:
         reset_counts(k1, k2)
-        align_batched.align_core_batched = recording
         t = time.perf_counter()
-        try:
+        with recording_k1() as captured:
             _, rep = validation_report(base + [
                 "--max-rows", "2", "--state-file", whole, "--invariants"])
-        finally:
-            align_batched.align_core_batched = wrapper
         sec = time.perf_counter() - t
-        k1.launches, k1.replicas = recording.launches, recording.replicas
         k1_n, k1_reps = k1.launches, k1.replicas
         others = k2.launches + k3_wrapper().launches
         steps = 2 * VAL_OUT_EVERY
@@ -1460,22 +1513,11 @@ def validation_phase(dev, k1, k2):
 
         # K1 against its plain version on the inputs this path gave it
         batch = min(default_k_align(VAL_REPLICAS), VAL_REPLICAS)
-        sizes = sorted({a[0].shape[0] for a, _ in captured})
-        if len(captured) != steps or sizes != [batch]:
-            fail(f"validation driver: {len(captured)} K1 calls of batch "
-                 f"sizes {sizes} captured, {steps} of {batch} expected")
-        k1_err, passes = 0.0, []
-        for i, (args, got) in enumerate(captured):
-            want = align_batched.align_core_batched_plain(*args, cfg)
-            k1_err = max(k1_err, compare_core(
-                got, want, f"K1 validation call {i + 1} of {steps}",
-                exact=True))
-            passes.append(core_passes(args, cfg))
+        k1_err, passes = check_k1_calls(captured, cfg, steps, batch,
+                                        "validation")
         log("validation driver", f"K1 on this path's own inputs: all "
-            f"{len(captured)} calls of the run (B = {batch}) bitwise equal "
-            f"to the plain version; passes "
-            f"{pass_summary(torch.cat(passes))}")
-        captured.clear()
+            f"{steps} calls of the run (B = {batch}) bitwise equal to the "
+            f"plain version; passes {pass_summary(passes)}")
 
         validation_report(base + ["--max-rows", "1", "--state-file", cut])
         validation_report(base + ["--max-rows", "2", "--state-file", cut,
@@ -1527,6 +1569,184 @@ def validation_phase(dev, k1, k2):
         vv.run_config = saved
         os.chdir(cwd)
     return k1_n, k1_err
+
+
+def lattice_script_phase(dev, k1, k2, mode, argv):
+    """validate_lattice_physics ``mode`` through main() on the card, its
+    fixed-dt chunks recorded: K3 once a fixed-dt step, K1 and K2 never,
+    and every chunk's result bitwise equal to the plain chunk's from the
+    same state on the card.  Returns (report, K3 launches, the recorded
+    chunks' (cfg, steps, plain result))."""
+    import torch
+    from kmc_tpu_torch.lattice.step import make_lattice_chunk
+    from kmc_tpu_torch.ops import lattice as k3_ops
+    from kmc_tpu_torch.scripts import validate_lattice_physics as vlp
+
+    made = k3_ops.make_pallas_lattice_chunk
+    chunks = []       # (cfg, steps, input state, result)
+
+    def recording(cfg, n):
+        f = made(cfg, n)
+
+        def g(st):
+            start = type(st)(*(x.clone() for x in st))
+            out = f(st)
+            chunks.append((cfg, n, start, out))
+            return out
+
+        return g
+
+    reset_counts(k1, k2)
+    k3_ops.make_pallas_lattice_chunk = recording
+    t = time.perf_counter()
+    try:
+        rc, rep = script_report(vlp, [mode, *argv, "--device", DEVICE])
+    finally:
+        k3_ops.make_pallas_lattice_chunk = made
+    sec = time.perf_counter() - t
+    k3_n, others = k3_wrapper().launches, k1.launches + k2.launches
+    steps = sum(n for _, n, _, _ in chunks)
+    plain = []
+    for cfg, n, start, out in chunks:
+        want = make_lattice_chunk(cfg, n)(start)
+        for f in want._fields:
+            if not torch.equal(getattr(out, f), getattr(want, f)):
+                fail(f"validate_lattice_physics {mode}: the {n}-step K3 "
+                     f"chunk's {f} differs from the plain chunk's")
+        plain.append((cfg, n, want))
+    log("validation scripts", f"validate_lattice_physics {mode} "
+        f"{' '.join(argv)}: rc {rc}, {sec:.2f} s; K3 launches {k3_n} in "
+        f"{steps} fixed-dt steps ({len(chunks)} chunks, each bitwise equal "
+        f"to the plain chunk on the card), K1 + K2 {others}; kernel "
+        f"{rep['kernel']}, ok={rep['ok']}, device {rep['device']}")
+    if k3_n != steps or others != 0 or rep["kernel"] != "K3":
+        fail(f"validate_lattice_physics {mode}: K3 launched {k3_n} times in "
+             f"{steps} steps, K1 + K2 {others} times, kernel "
+             f"{rep['kernel']}")
+    if rep["device"] != CARD:
+        fail(f"validate_lattice_physics {mode}: the report names the device "
+             f"{rep['device']!r}, nvidia-smi {CARD!r}")
+    return rep, k3_n, plain
+
+
+def validation_scripts_phase(dev, k1, k2):
+    """Phase 24: the port's other validation scripts on the card.  Returns
+    the K3 launches of the two lattice runs, the K1 launches of the
+    residual-overlap run and K1's max abs error on that run's own inputs
+    against the plain version."""
+    import torch
+    from kmc_tpu_torch.engine.step import step_fn_diag
+    from kmc_tpu_torch.lattice.grid import species_histogram
+    from kmc_tpu_torch.parallel.ensemble import init_ensemble
+    from kmc_tpu_torch.scripts import early_cluster_size_check as ecs
+    from kmc_tpu_torch.scripts import measure_residual_overlap as mro
+
+    # validate_lattice_physics: msd (config 2 at 512^2), rates (128^2)
+    rep, k3_msd, _ = lattice_script_phase(
+        dev, k1, k2, "msd", ["--steps", str(SCRIPT_MSD_STEPS)])
+    log("validation scripts", f"msd: {rep['lattice_msd_A2_per_step']:.5f} "
+        f"A^2 a step, {rep['lattice_vs_analytic']:.4f} of 2 D dt / 9")
+    rep, k3_rates, plain = lattice_script_phase(
+        dev, k1, k2, "rates", ["--steps", str(SCRIPT_RATES_STEPS)])
+    hist = [species_histogram(st)[:6].tolist() for _, n, st in plain
+            if n == SCRIPT_RATES_STEPS]
+    if hist[:1] != [rep["hist_fixed_dt"]]:
+        fail(f"validate_lattice_physics rates: hist_fixed_dt "
+             f"{rep['hist_fixed_dt']} against the plain chunk's {hist}")
+    log("validation scripts", f"rates: hist_fixed_dt {rep['hist_fixed_dt']}"
+        f" equals the plain chunk's; early_fd_per_step "
+        f"{rep['early_fd_per_step']} against "
+        f"{rep['expected_merges_per_step_t0']:.4f} expected; rejection-free "
+        f"{rep['rf_events']} events to t = {rep['rf_time']:.3f}, hist "
+        f"{rep['hist_rf_matched_time']}")
+
+    # measure_residual_overlap: K1 on every replica, every step
+    cfg = mro.run_config()
+    argv = ["--replicas", str(SCRIPT_RO_REPLICAS), "--chunks", "1",
+            "--chunk-steps", str(SCRIPT_RO_STEPS), "--device", DEVICE]
+    reset_counts(k1, k2)
+    t = time.perf_counter()
+    with recording_k1() as captured:
+        rc, rep = script_report(mro, argv)
+    sec = time.perf_counter() - t
+    k1_n, k1_reps = k1.launches, k1.replicas
+    others = k2.launches + k3_wrapper().launches
+    log("validation scripts", f"measure_residual_overlap {' '.join(argv)}: "
+        f"rc {rc}, {sec:.2f} s; residual overlaps "
+        f"{rep['residual_overlap_steps']} in {rep['replica_steps']} "
+        f"replica-steps; K1 launches {k1_n} aligning {k1_reps} replicas, "
+        f"K2 + K3 {others}; device {rep['device']}")
+    if (k1_n != SCRIPT_RO_STEPS or k1_reps != SCRIPT_RO_STEPS
+            * SCRIPT_RO_REPLICAS or others != 0 or rc != 0):
+        fail(f"measure_residual_overlap: K1 launched {k1_n} times for "
+             f"{k1_reps} replicas in {SCRIPT_RO_STEPS} steps, K2 + K3 "
+             f"{others} times, rc {rc}")
+    if rep["device"] != CARD:
+        fail(f"measure_residual_overlap: the report names the device "
+             f"{rep['device']!r}, nvidia-smi {CARD!r}")
+    k1_err, passes = check_k1_calls(captured, cfg, SCRIPT_RO_STEPS,
+                                    SCRIPT_RO_REPLICAS, "residual overlap")
+    log("validation scripts", f"K1 on this path's own inputs: all "
+        f"{SCRIPT_RO_STEPS} calls (B = {SCRIPT_RO_REPLICAS}) bitwise equal "
+        f"to the plain version; passes {pass_summary(passes)}")
+    card, st = mro.measure(cfg, SCRIPT_RO_CPU_REPLICAS, 1, SCRIPT_RO_STEPS,
+                           device=dev)
+    cpu, want = mro.measure(cfg, SCRIPT_RO_CPU_REPLICAS, 1, SCRIPT_RO_STEPS,
+                            device="cpu")
+    worst, pos_d, pos_share = 0.0, 0.0, 0.0
+    for f in want._fields:
+        got, ref = getattr(st, f).cpu(), getattr(want, f)
+        d = (got - ref).abs() if f in POSE_FIELDS else None
+        if f in ("a_xy", "b_center"):
+            # positions across the 5,773 A box: a few ulp of |x|, not an
+            # absolute 1e-4 A (one ulp is 2.4e-4 A at |x| > 2048 A)
+            ulp = torch.nextafter(ref.abs(), torch.full_like(ref, 1e9)) \
+                - ref.abs()
+            share = float((d / torch.clamp(POS_ULPS * ulp, min=POS_TOL))
+                          .max())
+            pos_d, pos_share = max(pos_d, float(d.max())), max(pos_share,
+                                                               share)
+            if share > 1.0:
+                fail(f"measure_residual_overlap: card vs CPU, {f} "
+                     f"{float(d.max()):.3g} A apart, over max({POS_ULPS} "
+                     f"ulp of |x|, {POS_TOL} A)")
+        elif f in POSE_FIELDS:
+            worst = max(worst, float(d.max()))
+        elif not torch.equal(got, ref):
+            fail(f"measure_residual_overlap: card vs CPU, {f} differs")
+    if card != cpu or worst > POS_TOL:
+        fail(f"measure_residual_overlap: card {card} vs CPU {cpu}, angles "
+             f"and quaternions {worst:.3g} apart")
+    log("validation scripts", f"measure_residual_overlap card vs CPU at "
+        f"{SCRIPT_RO_CPU_REPLICAS} replicas, {SCRIPT_RO_STEPS} steps: count "
+        f"{card} = {cpu}; topology/flags/keys bitwise, positions max abs "
+        f"diff {pos_d:.3g} A, at most {pos_share:.2f} of the limit max("
+        f"{POS_ULPS} ulp of |x|, {POS_TOL} A); a_psi and b_quat max abs "
+        f"diff {worst:.3g}")
+    holder = [init_ensemble(cfg, SCRIPT_RO_REPLICAS, seed=0, device=dev)]
+    ms = cuda_time_ms(lambda: holder.append(step_fn_diag(
+        holder.pop(), cfg, dev, batched=True)[0]), iters=TIMED,
+        warmup=WARMUP)
+    full = SCRIPT_RO_FULL_STEPS * ms / 60e3
+    log("validation scripts", f"measure_residual_overlap step at "
+        f"{SCRIPT_RO_REPLICAS} replicas: {ms:.3f} ms (CUDA events, {TIMED} "
+        f"steps after {WARMUP} warm-ups) -> {full:.2f} GPU-minutes for "
+        f"--chunks 10 --chunk-steps 500")
+
+    # early_cluster_size_check on the committed band-test state
+    cwd = os.getcwd()
+    os.chdir(REPO)
+    try:
+        rc, rep = script_report(ecs, [
+            "--state", os.path.join("validation_torch", "state.npz"),
+            "--ref-bond", *VAL_REF_BOND, "--max-rows", str(SCRIPT_ECS_ROWS)])
+    finally:
+        os.chdir(cwd)
+    log("validation scripts", f"early_cluster_size_check rc {rc}: "
+        + json.dumps(rep))
+    if rc != 0:
+        fail(f"early_cluster_size_check exited {rc}")
+    return k3_msd, k3_rates, k1_n, k1_err
 
 
 def main() -> int:
@@ -1834,6 +2054,13 @@ def main() -> int:
     # ---- 23. the oracle validation driver ----
     val_launches, val_err = validation_phase(dev, k1, k2)
 
+    # ---- 24. the other validation scripts ----
+    k3_msd, k3_rates, ro_launches, ro_err = validation_scripts_phase(
+        dev, k1, k2)
+    k3_entry["launches_by_path"].update({
+        "validate_lattice_physics msd": k3_msd,
+        "validate_lattice_physics rates": k3_rates})
+
     print(json.dumps({"kernels": [{
         "name": "align_batched",
         "route": "cuda",
@@ -1841,8 +2068,9 @@ def main() -> int:
         "replaces": "kmc_tpu/ops/pallas_align_batched.py:106",
         "launches": launches,
         "launches_by_path": {"lazy main path": launches,
-                             "validation driver": val_launches},
-        "max_abs_err": max(max_err, val_err),
+                             "validation driver": val_launches,
+                             "measure_residual_overlap": ro_launches},
+        "max_abs_err": max(max_err, val_err, ro_err),
         "ms": k1_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,

@@ -132,7 +132,10 @@ def test_port_imports_no_jax():
             "kmc_tpu_torch.parallel.mesh, kmc_tpu_torch.parallel.distributed, "
             "kmc_tpu_torch.parallel.halo, kmc_tpu_torch.parallel.launch, "
             "kmc_tpu_torch.scripts.validate_vs_reference, "
-            "kmc_tpu_torch.scripts.check_flagship_state; "
+            "kmc_tpu_torch.scripts.check_flagship_state, "
+            "kmc_tpu_torch.scripts.early_cluster_size_check, "
+            "kmc_tpu_torch.scripts.validate_lattice_physics, "
+            "kmc_tpu_torch.scripts.measure_residual_overlap; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'kmc_tpu' or "
             "m.startswith('kmc_tpu.')]; print(bad); "

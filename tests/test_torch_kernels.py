@@ -546,3 +546,28 @@ def test_validation_driver_on_card_matches_cpu(tmp_path, monkeypatch):
             np.testing.assert_array_equal(card[0][c], other[0][c], c)
         np.testing.assert_array_equal(card[1], other[1])
         np.testing.assert_array_equal(card[2], other[2])
+
+
+@pytest.mark.gpu
+def test_residual_overlap_on_card_matches_cpu():
+    """measure_residual_overlap's run (SMALL with the unrolled cleanup, 4
+    replicas, one chunk of 10 steps) launches K1 once a step on the card
+    and gives the CPU's per-chunk count and final state: integer fields
+    bitwise, poses within POS_TOL."""
+    from kmc_tpu_torch.scripts import measure_residual_overlap as ro
+
+    dev = _cuda()
+    cfg = SMALL.replace(sweep_exact_cleanup=False)
+    launches = align_batched.align_core_batched.launches
+    replicas = align_batched.align_core_batched.replicas
+    card, st = ro.measure(cfg, 4, 1, 10, device=dev)
+    assert align_batched.align_core_batched.launches == launches + 10
+    assert align_batched.align_core_batched.replicas == replicas + 40
+    cpu, want = ro.measure(cfg, 4, 1, 10, device="cpu")
+    assert card == cpu
+    for f in want._fields:
+        got = getattr(st, f).cpu()
+        if f in ("a_xy", "a_psi", "b_center", "b_quat"):
+            assert float((got - getattr(want, f)).abs().max()) <= POS_TOL, f
+        else:
+            assert torch.equal(got, getattr(want, f)), f
