@@ -1571,12 +1571,12 @@ def validation_phase(dev, k1, k2):
     return k1_n, k1_err
 
 
-def lattice_script_phase(dev, k1, k2, mode, argv):
+def lattice_script_phase(k1, k2, mode, argv):
     """validate_lattice_physics ``mode`` through main() on the card, its
     fixed-dt chunks recorded: K3 once a fixed-dt step, K1 and K2 never,
     and every chunk's result bitwise equal to the plain chunk's from the
     same state on the card.  Returns (report, K3 launches, the recorded
-    chunks' (cfg, steps, plain result))."""
+    chunks' (steps, plain result))."""
     import torch
     from kmc_tpu_torch.lattice.step import make_lattice_chunk
     from kmc_tpu_torch.ops import lattice as k3_ops
@@ -1613,7 +1613,7 @@ def lattice_script_phase(dev, k1, k2, mode, argv):
             if not torch.equal(getattr(out, f), getattr(want, f)):
                 fail(f"validate_lattice_physics {mode}: the {n}-step K3 "
                      f"chunk's {f} differs from the plain chunk's")
-        plain.append((cfg, n, want))
+        plain.append((n, want))
     log("validation scripts", f"validate_lattice_physics {mode} "
         f"{' '.join(argv)}: rc {rc}, {sec:.2f} s; K3 launches {k3_n} in "
         f"{steps} fixed-dt steps ({len(chunks)} chunks, each bitwise equal "
@@ -1643,12 +1643,12 @@ def validation_scripts_phase(dev, k1, k2):
 
     # validate_lattice_physics: msd (config 2 at 512^2), rates (128^2)
     rep, k3_msd, _ = lattice_script_phase(
-        dev, k1, k2, "msd", ["--steps", str(SCRIPT_MSD_STEPS)])
+        k1, k2, "msd", ["--steps", str(SCRIPT_MSD_STEPS)])
     log("validation scripts", f"msd: {rep['lattice_msd_A2_per_step']:.5f} "
         f"A^2 a step, {rep['lattice_vs_analytic']:.4f} of 2 D dt / 9")
     rep, k3_rates, plain = lattice_script_phase(
-        dev, k1, k2, "rates", ["--steps", str(SCRIPT_RATES_STEPS)])
-    hist = [species_histogram(st)[:6].tolist() for _, n, st in plain
+        k1, k2, "rates", ["--steps", str(SCRIPT_RATES_STEPS)])
+    hist = [species_histogram(st)[:6].tolist() for n, st in plain
             if n == SCRIPT_RATES_STEPS]
     if hist[:1] != [rep["hist_fixed_dt"]]:
         fail(f"validate_lattice_physics rates: hist_fixed_dt "
@@ -1696,7 +1696,11 @@ def validation_scripts_phase(dev, k1, k2):
     worst, pos_d, pos_share = 0.0, 0.0, 0.0
     for f in want._fields:
         got, ref = getattr(st, f).cpu(), getattr(want, f)
-        d = (got - ref).abs() if f in POSE_FIELDS else None
+        if f not in POSE_FIELDS:
+            if not torch.equal(got, ref):
+                fail(f"measure_residual_overlap: card vs CPU, {f} differs")
+            continue
+        d = (got - ref).abs()
         if f in ("a_xy", "b_center"):
             # positions across the 5,773 A box: a few ulp of |x|, not an
             # absolute 1e-4 A (one ulp is 2.4e-4 A at |x| > 2048 A)
@@ -1710,10 +1714,8 @@ def validation_scripts_phase(dev, k1, k2):
                 fail(f"measure_residual_overlap: card vs CPU, {f} "
                      f"{float(d.max()):.3g} A apart, over max({POS_ULPS} "
                      f"ulp of |x|, {POS_TOL} A)")
-        elif f in POSE_FIELDS:
+        else:
             worst = max(worst, float(d.max()))
-        elif not torch.equal(got, ref):
-            fail(f"measure_residual_overlap: card vs CPU, {f} differs")
     if card != cpu or worst > POS_TOL:
         fail(f"measure_residual_overlap: card {card} vs CPU {cpu}, angles "
              f"and quaternions {worst:.3g} apart")

@@ -255,24 +255,20 @@ def _rf_parting(tcfg, jcfg, st0, t_end):
 
 
 def test_lattice_rates_match(monkeypatch, tmp_path):
-    argv = ["rates", "--steps", "40"]
-    jrep, prep = assert_same_mains_rf(monkeypatch, tmp_path, argv)
-    for k in ("hist_fixed_dt", "early_fd_per_step", "adjacent_pairs_t0",
-              "expected_merges_per_step_t0"):
-        assert prep[k] == jrep[k], k
-    assert prep["kernel"] == "plain"
-
-
-def assert_same_mains_rf(monkeypatch, tmp_path, argv):
     """``rates`` through both mains: every field equal; the rejection-free
     ones may differ only after an ulp tie of the free run."""
+    argv = ["rates", "--steps", "40"]
     jout, pout = str(tmp_path / "jax.json"), str(tmp_path / "port.json")
     jrc, _ = run_jax_main(monkeypatch, jlp, [*argv, "--out", jout])
     prc, _ = run_port_main(plp, [*argv, "--device", "cpu", "--out", pout])
-    jrep, prep = read_report(jout), read_report(pout)
+    jrep, prep = read_report(jout), read_report(pout, drop=())
     rf_keys = ("hist_rf_matched_time", "rf_time", "rf_events", "ok")
-    assert {k: v for k, v in prep.items() if k not in rf_keys} == \
+    assert {k: v for k, v in prep.items()
+            if k not in rf_keys + PORT_ONLY} == \
         {k: v for k, v in jrep.items() if k not in rf_keys}
+    for k in ("hist_fixed_dt", "early_fd_per_step"):
+        assert prep[k] == jrep[k], k
+    assert prep["kernel"] == "plain"
     if any(prep[k] != jrep[k] for k in rf_keys):
         from kmc_tpu.lattice.mapping import reference_lattice_config
         from kmc_tpu_torch.config import LatticeConfig
@@ -282,11 +278,9 @@ def assert_same_mains_rf(monkeypatch, tmp_path, argv):
                                         height=128, width=128, density=0.3)
         tcfg = LatticeConfig(**jcfg.to_dict())
         st0 = init_lattice(tcfg, seed=0, device="cpu")
-        parted = _rf_parting(tcfg, jcfg, st0, float(prep["steps"]))
-        assert rf_tie(parted, tcfg)
+        assert rf_tie(_rf_parting(tcfg, jcfg, st0, 40.0), tcfg)
     else:
         assert prc == jrc
-    return jrep, read_report(pout, drop=())
 
 
 # ---------------------------------------------------------------------------
