@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA device (phases 19 and 21 start a rank on each visible
+Needs one CUDA device (phases 19, 21 and 25 start a rank on each visible
 card), the CUDA toolkit (nvcc) and the repository around this file;
 without a card it exits nonzero and prints no result.  It finishes in a
 few minutes, the kernel build included, and prints one line per phase
@@ -141,7 +141,19 @@ with the seconds since start:
     (integers bitwise, positions within 4 ulp of |x| or 1e-4 A);
     its step timed with CUDA events (the minutes a committed run of 5,000
     steps takes); early_cluster_size_check on validation_torch/state.npz
-    against both oracles, exit code 0, its report printed.
+    against both oracles, exit code 0, its report printed;
+25. distributed e2e: kmc_tpu_torch.scripts.distributed_worker's
+    production loop (run_e2e) at SimConfig(), 256 replicas a rank, 25
+    steps an output: in this process at W = 1, 4 uninterrupted outputs
+    (K1 once a step at B = 256, K2 and K3 never, every K1 call bitwise
+    equal to the plain version on its own inputs), then 2 outputs and 2
+    resumed from the shard files: bond_ens.dat text-identical, the final
+    shards equal leaf by leaf; with W > 1 cards the same through W NCCL
+    ranks of the worker (each rank's resumed shard equal to its
+    uninterrupted one, K1 once a step on every rank), and the W ranks'
+    rows equal to the same W blocks (seeded p) run as one ensemble on
+    one card in this process; the step, collect and checkpoint seconds
+    of an output and the machinery fraction printed.
 
 Each phase of a path sets every launch count to 0 before it runs the path
 and reads the counts just after.  The last three lines are one JSON
@@ -217,6 +229,7 @@ SCRIPT_MSD_STEPS, SCRIPT_RATES_STEPS = 200, 40
 SCRIPT_RO_REPLICAS, SCRIPT_RO_STEPS, SCRIPT_RO_CPU_REPLICAS = 256, 20, 4
 SCRIPT_RO_FULL_STEPS = 10 * 500   # a committed residual-overlap run's steps
 SCRIPT_ECS_ROWS = 22
+E2E_REPLICAS, E2E_OUT_EVERY, E2E_OUTPUTS = 256, 25, 4   # phase 25, a rank
 RANK_TIMEOUT = 600     # seconds a spawn of ranks may take before it fails
 WORK = ""              # this run's temporary directory, made by main
 PASS_DEPTHS = (1, 2, 4, 8, 12)   # seed 1 runs align_depth passes at each
@@ -1751,6 +1764,167 @@ def validation_scripts_phase(dev, k1, k2):
     return k3_msd, k3_rates, k1_n, k1_err
 
 
+def e2e_worker_argv(w, out_dir, outputs, resume):
+    """Each rank's arguments for W ranks of the worker's production loop
+    at SimConfig() (``python -m kmc_tpu_torch.testing worker``, which adds
+    the rank's launch counts)."""
+    def argv(rank, port):
+        return ["-m", "kmc_tpu_torch.testing", "worker", "--full-width",
+                "--", "--pid", str(rank), "--nproc", str(w), "--port",
+                str(port), "--out", os.path.join(out_dir, "unused"),
+                "--e2e-out-dir", out_dir, "--replicas-per-host",
+                str(E2E_REPLICAS), "--outputs", str(outputs), "--out-every",
+                str(E2E_OUT_EVERY), "--device", DEVICE,
+                *(["--resume"] if resume else [])]
+    return argv
+
+
+def e2e_timing(out_dir, what):
+    """One line of the production loop's timing, from each rank's file."""
+    reps = []
+    for f in sorted(os.listdir(out_dir)):
+        if f.startswith("timing.pid"):
+            with open(os.path.join(out_dir, f)) as fh:
+                reps.append(json.load(fh))
+    line = "; ".join(
+        f"rank {t['pid']}: step {t['step_s_per_interval']:.4f} s, collect "
+        f"{t['collect_s_per_interval'] * 1e3:.3f} ms, checkpoint "
+        f"{t['checkpoint_s_per_interval'] * 1e3:.3f} ms, machinery "
+        f"{100 * t['machinery_fraction']:.3f} % (first output "
+        f"{t['first_interval_s_incl_compile']:.3f} s)" for t in reps)
+    log("distributed e2e", f"{what}, an output of {E2E_OUT_EVERY} steps "
+        f"after the first: {line}")
+    return reps
+
+
+def same_shards(a, b, what):
+    """Two shard files equal leaf by leaf, bitwise."""
+    import numpy as np
+
+    with np.load(a) as za, np.load(b) as zb:
+        if sorted(za.files) != sorted(zb.files) or not all(
+                za[k].dtype == zb[k].dtype and np.array_equal(za[k], zb[k])
+                for k in za.files):
+            fail(f"distributed e2e: {what}: {os.path.basename(a)} differs")
+
+
+def read_text(path):
+    with open(path) as f:
+        return f.read()
+
+
+def distributed_e2e_phase(dev, k1, k2):
+    """Phase 25: the worker's production loop with per-rank shards at
+    SimConfig(), 256 replicas a rank; returns the K1 launches of the
+    uninterrupted in-process run and K1's max abs error on that run's own
+    inputs against the plain version."""
+    import argparse
+
+    import torch
+    from kmc_tpu_torch import SimConfig
+    from kmc_tpu_torch.parallel.ensemble import (init_ensemble,
+                                                 make_ensemble_chunk)
+    from kmc_tpu_torch.scripts import distributed_worker as dw
+
+    cfg = SimConfig()
+    d = os.path.join(WORK, "e2e")
+
+    def run(name, outputs, resume=False):
+        return dw.run_e2e(argparse.Namespace(
+            out_dir=os.path.join(d, name), replicas_per_host=E2E_REPLICAS,
+            seed=0, outputs=outputs, out_every=E2E_OUT_EVERY, resume=resume,
+            device=DEVICE), cfg)
+
+    # (a) W = 1 in this process: 4 outputs, then 2 + 2 resumed
+    steps = E2E_OUTPUTS * E2E_OUT_EVERY
+    reset_counts(k1, k2)
+    t = time.perf_counter()
+    with recording_k1() as captured:
+        run("whole", E2E_OUTPUTS)
+    sec = time.perf_counter() - t
+    k1_n, k1_reps = k1.launches, k1.replicas
+    others = k2.launches + k3_wrapper().launches
+    log("distributed e2e", f"W = 1 in this process, {E2E_OUTPUTS} outputs "
+        f"of {E2E_OUT_EVERY} steps at {E2E_REPLICAS} replicas: {sec:.2f} s; "
+        f"K1 launches {k1_n} aligning {k1_reps} replicas in {steps} steps, "
+        f"K2 + K3 {others}")
+    if k1_n != steps or k1_reps != steps * E2E_REPLICAS or others != 0:
+        fail(f"distributed e2e: K1 launched {k1_n} times for {k1_reps} "
+             f"replicas in {steps} steps, K2 + K3 {others} times")
+    k1_err, passes = check_k1_calls(captured, cfg, steps, E2E_REPLICAS,
+                                    "distributed e2e")
+    log("distributed e2e", f"K1 on this path's own inputs: all {steps} "
+        f"calls (B = {E2E_REPLICAS}) bitwise equal to the plain version; "
+        f"passes {pass_summary(passes)}")
+    half = E2E_OUTPUTS // 2
+    run("cut", half)
+    e2e_timing(os.path.join(d, "cut"), "W = 1, fresh")
+    run("cut", half, resume=True)
+    e2e_timing(os.path.join(d, "cut"), "W = 1, resumed")
+    rows = read_text(os.path.join(d, "whole", "bond_ens.dat"))
+    if (read_text(os.path.join(d, "cut", "bond_ens.dat")) != rows
+            or len(rows.splitlines()) != 1 + E2E_OUTPUTS):
+        fail("distributed e2e: W = 1, the resumed bond_ens.dat differs from "
+             "the uninterrupted one")
+    same_shards(os.path.join(d, "cut", "checkpoint.shard0.npz"),
+                os.path.join(d, "whole", "checkpoint.shard0.npz"), "W = 1")
+    log("distributed e2e", f"W = 1: {half} outputs + {half} resumed from "
+        f"the shard file: bond_ens.dat text-identical to {E2E_OUTPUTS} "
+        f"uninterrupted outputs ({len(rows.splitlines())} lines), final "
+        f"shard equal leaf by leaf; last row: {rows.splitlines()[-1]}")
+
+    # (b) W NCCL ranks, one a card
+    w = torch.cuda.device_count()
+    if w < 2:
+        log("distributed e2e", "one card: the W-rank run needs two or more")
+        return k1_n, k1_err
+    torch.cuda.empty_cache()
+    dirs = {k: os.path.join(d, f"w{w}_{k}") for k in ("whole", "cut")}
+    t = time.perf_counter()
+    counts = spawn_ranks(w, e2e_worker_argv(w, dirs["whole"], E2E_OUTPUTS,
+                                            False))
+    sec = time.perf_counter() - t
+    for c in counts:
+        if (c["k1"], c["k1_replicas"], c["k2"], c["k3"]) != (
+                steps, steps * E2E_REPLICAS, 0, 0):
+            fail(f"distributed e2e rank {c['rank']}: K1 {c['k1']} launches "
+                 f"over {c['k1_replicas']} replicas, K2 {c['k2']}, K3 "
+                 f"{c['k3']} (want {steps} at B = {E2E_REPLICAS}, 0, 0)")
+    spawn_ranks(w, e2e_worker_argv(w, dirs["cut"], half, False))
+    how = f"W = {w} {'NCCL' if DEVICE == 'cuda' else 'gloo'} ranks"
+    e2e_timing(dirs["cut"], f"{how}, fresh")
+    spawn_ranks(w, e2e_worker_argv(w, dirs["cut"], half, True))
+    e2e_timing(dirs["cut"], f"{how}, resumed")
+    rows_w = read_text(os.path.join(dirs["whole"], "bond_ens.dat"))
+    if read_text(os.path.join(dirs["cut"], "bond_ens.dat")) != rows_w:
+        fail(f"distributed e2e: W = {w}, the resumed bond_ens.dat differs "
+             f"from the uninterrupted one")
+    for p in range(w):
+        same_shards(os.path.join(dirs["cut"], f"checkpoint.shard{p}.npz"),
+                    os.path.join(dirs["whole"], f"checkpoint.shard{p}.npz"),
+                    f"W = {w} rank {p}")
+    # the same W blocks as one ensemble on one card, in this process
+    blocks = [init_ensemble(cfg, E2E_REPLICAS, seed=p, device=dev)
+              for p in range(w)]
+    st = type(blocks[0])(*(torch.cat(x) for x in zip(*blocks)))
+    chunk = make_ensemble_chunk(cfg, E2E_OUT_EVERY, device=dev)
+    one = [dw.HEADER]
+    for _ in range(E2E_OUTPUTS):
+        st, obs = chunk(st)
+        one.append(dw.format_row(dw.ensemble_row(obs)))
+    if "".join(one) != rows_w:
+        fail(f"distributed e2e: the {w} ranks' rows differ from the same "
+             f"{w} blocks run as one ensemble on one card")
+    log("distributed e2e", f"{how}, {E2E_REPLICAS} replicas "
+        f"each, {E2E_OUTPUTS} outputs: {sec:.2f} s with the ranks' start; K1 "
+        f"{steps} launches at B = {E2E_REPLICAS} on every rank, K2 and K3 0; "
+        f"{half} + {half} resumed equal {E2E_OUTPUTS} uninterrupted (rows "
+        f"text-identical, every rank's shard leaf by leaf); the rows equal "
+        f"the {w} blocks (seeds 0-{w - 1}) run as {w * E2E_REPLICAS} "
+        f"replicas on one card")
+    return k1_n, k1_err
+
+
 def main() -> int:
     import torch
 
@@ -2063,6 +2237,9 @@ def main() -> int:
         "validate_lattice_physics msd": k3_msd,
         "validate_lattice_physics rates": k3_rates})
 
+    # ---- 25. the production loop with per-rank shards ----
+    e2e_launches, e2e_err = distributed_e2e_phase(dev, k1, k2)
+
     print(json.dumps({"kernels": [{
         "name": "align_batched",
         "route": "cuda",
@@ -2071,8 +2248,9 @@ def main() -> int:
         "launches": launches,
         "launches_by_path": {"lazy main path": launches,
                              "validation driver": val_launches,
-                             "measure_residual_overlap": ro_launches},
-        "max_abs_err": max(max_err, val_err, ro_err),
+                             "measure_residual_overlap": ro_launches,
+                             "distributed e2e": e2e_launches},
+        "max_abs_err": max(max_err, val_err, ro_err, e2e_err),
         "ms": k1_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,

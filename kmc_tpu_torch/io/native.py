@@ -1,7 +1,8 @@
-"""ctypes bindings to the repository's native I/O codec
-(``native/kmcio.cpp``, port of ``kmc_tpu/io/native.py``).
+"""ctypes bindings to the native I/O codec (``csrc/kmcio.cpp``, port of
+``kmc_tpu/io/native.py``).
 
-The C++ file is the JAX package's, used unchanged.  It is compiled with
+The C++ file is the package's own copy of the JAX package's
+``native/kmcio.cpp``, kept byte for byte the same.  It is compiled with
 ``g++`` at first use into ``kmc_tpu_torch/_build/kmcio-<hash>/libkmcio.so``
 (the hash covers the source).  Where ``g++`` or the library is unavailable,
 ``available()`` is false and the writers (io/writers.py) format in Python,
@@ -20,7 +21,7 @@ import threading
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(os.path.dirname(_PKG), "native", "kmcio.cpp")
+SRC = os.path.join(_PKG, "csrc", "kmcio.cpp")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 
 _lib = None
@@ -97,7 +98,7 @@ def available() -> bool:
 def _need_lib():
     if not ensure_built():
         raise RuntimeError("native kmcio unavailable (g++ or "
-                           "native/kmcio.cpp missing)")
+                           "csrc/kmcio.cpp missing)")
     return _lib
 
 

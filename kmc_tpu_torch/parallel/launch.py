@@ -32,9 +32,11 @@ def free_port() -> int:
 def spawn(n: int, argv, timeout: float = 600.0, cwd=None,
           env=None) -> list[str]:
     """Run ``python argv`` as ranks 0..n-1; returns each rank's output
-    (stdout and stderr together).  Raises RuntimeError if a rank exits
-    nonzero or the ranks outlast ``timeout`` seconds."""
+    (stdout and stderr together).  ``argv`` is a list, or a function of
+    (rank, port) that gives each rank's list.  Raises RuntimeError if a
+    rank exits nonzero or the ranks outlast ``timeout`` seconds."""
     port = free_port()
+    rank_argv = argv if callable(argv) else (lambda i, port: argv)
     base = dict(os.environ if env is None else env)
     # each rank writes to a file of its own: a pipe that nobody reads
     # while the caller waits on another rank could fill and block it
@@ -44,7 +46,7 @@ def spawn(n: int, argv, timeout: float = 600.0, cwd=None,
         rank_env = dict(base, KMC_COORDINATOR=f"127.0.0.1:{port}",
                         KMC_NUM_PROCESSES=str(n), KMC_PROCESS_ID=str(i))
         procs.append(subprocess.Popen(
-            [sys.executable, *argv], cwd=cwd, env=rank_env,
+            [sys.executable, *rank_argv(i, port)], cwd=cwd, env=rank_env,
             stdout=outs[i], stderr=subprocess.STDOUT, text=True))
     # a rank that fails leaves the others waiting on its messages: they
     # get GRACE_S seconds to end on their own, then every rank is killed
@@ -67,13 +69,14 @@ def spawn(n: int, argv, timeout: float = 600.0, cwd=None,
             f.seek(0)
             logs.append(f.read())
             f.close()
+    what = rank_argv(0, port)
     if late and not any(p.returncode for i, p in enumerate(procs)
                         if i not in late):
-        raise RuntimeError(f"{n} ranks of {argv} outlasted {timeout} s; "
+        raise RuntimeError(f"{n} ranks of {what} outlasted {timeout} s; "
                            f"rank 0 said:\n{logs[0][-3000:]}")
     bad = [i for i, p in enumerate(procs) if p.returncode != 0]
     if bad:
-        raise RuntimeError(f"ranks {bad} of {argv} failed:\n" + "\n".join(
+        raise RuntimeError(f"ranks {bad} of {what} failed:\n" + "\n".join(
             f"--- rank {i} (exit {procs[i].returncode}):\n{logs[i][-3000:]}"
             for i in bad))
     return logs

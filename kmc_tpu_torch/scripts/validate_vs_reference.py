@@ -230,11 +230,14 @@ def state_arrays(state) -> dict:
 
 
 def load_state(z, device):
-    """The ensemble of a state file (either package's) on ``device``."""
+    """The ensemble of a state file (either package's) on ``device``; also
+    reads a shard file of ``scripts/distributed_worker.py``, which has no
+    ``n_leaf``."""
     from kmc_tpu_torch import convert
     from kmc_tpu_torch.state import SimState
 
-    n = int(z["n_leaf"])
+    n = (int(z["n_leaf"]) if "n_leaf" in z.files else
+         sum(1 for k in z.files if k.startswith("leaf")))
     if n != len(SimState._fields):
         raise ValueError(f"state file holds {n} leaves, SimState has "
                          f"{len(SimState._fields)}")

@@ -4,8 +4,8 @@ inputs of K1 and K2 formed from them exactly as the main paths form
 them; the ulp-tie rule under which two rejection-free trajectories may
 part; the halo-padded blocks of a grid cut over a rank grid, as K3 takes
 them on a shard; and one rank of the multi-process checks
-(``python -m kmc_tpu_torch.testing {cli,ensemble,halo}``, started by
-``parallel/launch.py``)."""
+(``python -m kmc_tpu_torch.testing {cli,ensemble,halo,worker}``, started
+by ``parallel/launch.py``)."""
 
 from __future__ import annotations
 
@@ -23,6 +23,8 @@ from kmc_tpu_torch.lattice.grid import LatticeState
 from kmc_tpu_torch.lattice.rejection_free import _scores, event_rates
 from kmc_tpu_torch.models.tnfr import ligand_template
 from kmc_tpu_torch.parallel.ensemble import init_ensemble
+# the multi-process ensemble's configuration, the worker's
+from kmc_tpu_torch.scripts.distributed_worker import DIST_CFG
 from kmc_tpu_torch.state import SimState
 
 
@@ -193,9 +195,6 @@ def step_halo_blocks(state: LatticeState, cfg: LatticeConfig, shape,
 #
 # Each prints one JSON line of its results last.
 
-# the multi-process ensemble's configuration, scripts/distributed_worker.py's
-DIST_CFG = dict(n_a=24, n_b=8, cell_range_x=2000.0, cell_range_y=2000.0,
-                cell_range_z=600.0, fused_align=False)
 
 
 def _launch_counts() -> dict:
@@ -255,20 +254,17 @@ def _rank_cli(args) -> dict:
 
 
 def _rank_ensemble(args) -> dict:
-    """host_local_ensemble + the eager chunk; each rank writes its block
-    and last observables to rank<p>.npz, rank 0 the gathered observables
-    to merged.npz."""
+    """host_local_ensemble + the eager chunk (the worker's default mode);
+    each rank writes its block and last observables to rank<p>.npz, rank 0
+    the gathered observables to merged.npz."""
     from kmc_tpu_torch import convert
     from kmc_tpu_torch.parallel.distributed import (all_hosts_mean,
-                                                    gather_replicas,
-                                                    host_local_ensemble)
-    from kmc_tpu_torch.parallel.ensemble import make_ensemble_chunk
+                                                    gather_replicas)
     from kmc_tpu_torch.parallel.mesh import world
+    from kmc_tpu_torch.scripts.distributed_worker import advance_blocks
 
-    cfg = SimConfig(**DIST_CFG)
-    st = host_local_ensemble(cfg, args.replicas_per_host, seed=args.seed,
-                             device=args.device)
-    st, obs = make_ensemble_chunk(cfg, args.steps, st.step.device)(st)
+    st, obs, _ = advance_blocks(SimConfig(**DIST_CFG), args.replicas_per_host,
+                                args.steps, args.seed, args.device)
     rank = world()[0]
     arrays = convert.to_numpy(st)
     arrays.update({f"obs_{k}": v.cpu().numpy()
@@ -280,6 +276,25 @@ def _rank_ensemble(args) -> dict:
         np.savez(os.path.join(args.out, "merged.npz"),
                  **{k: v.cpu().numpy() for k, v in merged._asdict().items()})
     return {"bond_num_mean": float(mean)}
+
+
+def _rank_worker(args) -> dict:
+    """scripts/distributed_worker.py as this rank, in this process (it
+    forms and leaves the group itself); with --full-width at SimConfig()
+    rather than the worker's small configuration.  Its kernel launch
+    counts."""
+    from kmc_tpu_torch.scripts import distributed_worker
+
+    saved = distributed_worker.run_config
+    if args.full_width:
+        distributed_worker.run_config = SimConfig
+    try:
+        rc = distributed_worker.main(args.rest)
+    finally:
+        distributed_worker.run_config = saved
+    if rc != 0:
+        raise SystemExit(rc)
+    return _launch_counts()
 
 
 def _rank_halo(args) -> dict:
@@ -414,7 +429,7 @@ def rank_main(argv=None) -> int:
     from kmc_tpu_torch.parallel import distributed
 
     ap = argparse.ArgumentParser(prog="kmc_tpu_torch.testing")
-    ap.add_argument("task", choices=["cli", "ensemble", "halo"])
+    ap.add_argument("task", choices=["cli", "ensemble", "halo", "worker"])
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", default=None)
     ap.add_argument("--seed", type=int, default=0)
@@ -432,13 +447,14 @@ def rank_main(argv=None) -> int:
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--save", default=None)
     ap.add_argument("--time", type=int, default=0)
+    ap.add_argument("--full-width", action="store_true")
     argv = list(sys.argv[1:] if argv is None else argv)
     cut = argv.index("--") if "--" in argv else len(argv)
     args = ap.parse_args(argv[:cut])
-    args.rest = argv[cut + 1:]             # the CLI's arguments
+    args.rest = argv[cut + 1:]      # the CLI's or the worker's arguments
     torch.set_num_threads(1)             # the ranks share the host's cores
-    if args.task == "cli":
-        out = _rank_cli(args)
+    if args.task in ("cli", "worker"):
+        out = (_rank_cli if args.task == "cli" else _rank_worker)(args)
     else:
         joined = distributed.initialize(device=args.device, timeout=120)
         try:

@@ -135,7 +135,9 @@ def test_port_imports_no_jax():
             "kmc_tpu_torch.scripts.check_flagship_state, "
             "kmc_tpu_torch.scripts.early_cluster_size_check, "
             "kmc_tpu_torch.scripts.validate_lattice_physics, "
-            "kmc_tpu_torch.scripts.measure_residual_overlap; "
+            "kmc_tpu_torch.scripts.measure_residual_overlap, "
+            "kmc_tpu_torch.scripts.distributed_worker, "
+            "kmc_tpu_torch.scripts.run_distributed_e2e; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'kmc_tpu' or "
             "m.startswith('kmc_tpu.')]; print(bad); "
@@ -143,6 +145,19 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_native_source_is_the_packages_own():
+    """The port compiles its own copy of the I/O codec, not the JAX
+    package's native/kmcio.cpp; the copy is byte for byte the same."""
+    from kmc_tpu_torch.io import native
+
+    pkg = os.path.dirname(os.path.abspath(kmc_tpu_torch.__file__))
+    src = os.path.abspath(native.SRC)
+    assert os.path.commonpath([src, pkg]) == pkg, src
+    with open(src, "rb") as f, \
+            open(os.path.join(REPO, "native", "kmcio.cpp"), "rb") as g:
+        assert f.read() == g.read()
 
 
 def test_entry_points_default_to_cuda():

@@ -3,8 +3,9 @@
 * Writers: from one bridged state, bond.dat, test.gro, cluster.log,
   hist.dat, parameter.log and position.cpt are byte-identical to
   kmc_tpu's.  test.gro is compared once per formatter: the port's Python
-  formatter against kmc_tpu's Python one, and the port's binding of
-  native/kmcio.cpp against kmc_tpu's (skipped where g++ is missing, as
+  formatter against kmc_tpu's Python one, and the port's binding of its
+  copy of the codec (kmc_tpu_torch/csrc/kmcio.cpp) against kmc_tpu's
+  native/kmcio.cpp (skipped where g++ is missing, as
   tests/test_native_io.py skips).
 * ``load_reference_cpt`` of the committed reference checkpoint equals
   kmc_tpu's, field by field.

@@ -571,3 +571,39 @@ def test_residual_overlap_on_card_matches_cpu():
             assert float((got - getattr(want, f)).abs().max()) <= POS_TOL, f
         else:
             assert torch.equal(got, getattr(want, f)), f
+
+
+@pytest.mark.gpu
+def test_distributed_e2e_on_card_matches_cpu(tmp_path):
+    """The worker's production loop at W = 1 (its small configuration, 4
+    replicas, 2 outputs of 10 steps) launches K1 once a step on the card
+    and writes the CPU's rows, text-identical, and the CPU's shard:
+    integer leaves bitwise, poses within POS_TOL."""
+    import argparse
+
+    import numpy as np
+
+    from kmc_tpu_torch.scripts import distributed_worker as dw
+
+    _cuda()
+    launches = align_batched.align_core_batched.launches
+    for where in ("cuda", "cpu"):
+        dw.run_e2e(argparse.Namespace(
+            out_dir=str(tmp_path / where), replicas_per_host=4, seed=0,
+            outputs=2, out_every=10, resume=False, device=where),
+            dw.run_config())
+        if where == "cuda":
+            assert align_batched.align_core_batched.launches == launches + 20
+    card, cpu = tmp_path / "cuda", tmp_path / "cpu"
+    assert ((card / "bond_ens.dat").read_text()
+            == (cpu / "bond_ens.dat").read_text())
+    with np.load(card / "checkpoint.shard0.npz") as zc, \
+            np.load(cpu / "checkpoint.shard0.npz") as zp:
+        assert sorted(zc.files) == sorted(zp.files)
+        fields = {f"leaf{i}": f for i, f in enumerate(
+            ("a_xy", "a_psi", "b_center", "b_quat"))}
+        for k in zp.files:
+            if k in fields:
+                assert np.abs(zc[k] - zp[k]).max() <= POS_TOL, fields[k]
+            else:
+                np.testing.assert_array_equal(zc[k], zp[k], k)
