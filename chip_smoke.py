@@ -1780,7 +1780,7 @@ def e2e_worker_argv(w, out_dir, outputs, resume):
 
 
 def e2e_timing(out_dir, what):
-    """One line of the production loop's timing, from each rank's file."""
+    """Log the production loop's timing, from each rank's file."""
     reps = []
     for f in sorted(os.listdir(out_dir)):
         if f.startswith("timing.pid"):
@@ -1794,7 +1794,6 @@ def e2e_timing(out_dir, what):
         f"{t['first_interval_s_incl_compile']:.3f} s)" for t in reps)
     log("distributed e2e", f"{what}, an output of {E2E_OUT_EVERY} steps "
         f"after the first: {line}")
-    return reps
 
 
 def same_shards(a, b, what):

@@ -13,8 +13,13 @@ between CPU processes with ``--device cpu``.  There is no fallback: with
 the default ``--device cuda`` and no card the rank raises before it
 writes anything.
 
-Default mode: ``--steps`` eager steps (on the card, K1 on the rank's whole
-block once a step); rank 0 writes the JAX script's statistics to
+The configuration is the JAX script's (``run_config``: 24 receptors + 8
+ligands, ``fused_align=False``, so the align runs as the unfused tensor
+code, as it did in the JAX script); at a configuration with the fused
+align, such as ``SimConfig()``, the card runs K1 on the rank's whole
+block once a step.
+
+Default mode: ``--steps`` eager steps; rank 0 writes the JAX script's statistics to
 ``--out``: ``bond_sum`` (the last step's bonds over every replica),
 ``xy_checksum`` (the float64 sum of every replica's ``a_xy``), ``step``,
 ``replicas_global`` and, with ``--bench-repeats``, ``bench`` (replica-

@@ -575,10 +575,11 @@ def test_residual_overlap_on_card_matches_cpu():
 
 @pytest.mark.gpu
 def test_distributed_e2e_on_card_matches_cpu(tmp_path):
-    """The worker's production loop at W = 1 (its small configuration, 4
-    replicas, 2 outputs of 10 steps) launches K1 once a step on the card
-    and writes the CPU's rows, text-identical, and the CPU's shard:
-    integer leaves bitwise, poses within POS_TOL."""
+    """The worker's production loop at W = 1 (SMALL, with the fused align
+    that the card runs as K1 -- the worker's own configuration runs the
+    unfused align; 4 replicas, 2 outputs of 10 steps) launches K1 once a
+    step on the card and writes the CPU's rows, text-identical, and the
+    CPU's shard: integer leaves bitwise, poses within POS_TOL."""
     import argparse
 
     import numpy as np
@@ -591,7 +592,7 @@ def test_distributed_e2e_on_card_matches_cpu(tmp_path):
         dw.run_e2e(argparse.Namespace(
             out_dir=str(tmp_path / where), replicas_per_host=4, seed=0,
             outputs=2, out_every=10, resume=False, device=where),
-            dw.run_config())
+            SMALL)
         if where == "cuda":
             assert align_batched.align_core_batched.launches == launches + 20
     card, cpu = tmp_path / "cuda", tmp_path / "cpu"
