@@ -1769,9 +1769,9 @@ def e2e_worker_argv(w, out_dir, outputs, resume):
     at SimConfig() (``python -m kmc_tpu_torch.testing worker``, which adds
     the rank's launch counts)."""
     def argv(rank, port):
-        return ["-m", "kmc_tpu_torch.testing", "worker", "--full-width",
-                "--", "--pid", str(rank), "--nproc", str(w), "--port",
-                str(port), "--out", os.path.join(out_dir, "unused"),
+        return ["-m", "kmc_tpu_torch.testing", "worker", "--", "--pid",
+                str(rank), "--nproc", str(w), "--port", str(port), "--out",
+                os.path.join(out_dir, "unused"),
                 "--e2e-out-dir", out_dir, "--replicas-per-host",
                 str(E2E_REPLICAS), "--outputs", str(outputs), "--out-every",
                 str(E2E_OUT_EVERY), "--device", DEVICE,

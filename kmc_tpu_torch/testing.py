@@ -192,9 +192,9 @@ def step_halo_blocks(state: LatticeState, cfg: LatticeConfig, shape,
 #     python -m kmc_tpu_torch.testing cli -- <cli arguments>
 #     python -m kmc_tpu_torch.testing ensemble --out DIR ...
 #     python -m kmc_tpu_torch.testing halo --shape 2 2 ...
+#     python -m kmc_tpu_torch.testing worker -- <worker arguments>
 #
 # Each prints one JSON line of its results last.
-
 
 
 def _launch_counts() -> dict:
@@ -280,14 +280,12 @@ def _rank_ensemble(args) -> dict:
 
 def _rank_worker(args) -> dict:
     """scripts/distributed_worker.py as this rank, in this process (it
-    forms and leaves the group itself); with --full-width at SimConfig()
-    rather than the worker's small configuration.  Its kernel launch
-    counts."""
+    forms and leaves the group itself), at SimConfig() rather than the
+    worker's small configuration; its kernel launch counts."""
     from kmc_tpu_torch.scripts import distributed_worker
 
     saved = distributed_worker.run_config
-    if args.full_width:
-        distributed_worker.run_config = SimConfig
+    distributed_worker.run_config = SimConfig
     try:
         rc = distributed_worker.main(args.rest)
     finally:
@@ -447,7 +445,6 @@ def rank_main(argv=None) -> int:
     ap.add_argument("--check", action="store_true")
     ap.add_argument("--save", default=None)
     ap.add_argument("--time", type=int, default=0)
-    ap.add_argument("--full-width", action="store_true")
     argv = list(sys.argv[1:] if argv is None else argv)
     cut = argv.index("--") if "--" in argv else len(argv)
     args = ap.parse_args(argv[:cut])
