@@ -170,7 +170,8 @@ def test_early_cluster_size_matches(monkeypatch, tmp_path, case):
     assert jrep["rows_considered"] == min(int(rows), n_rows)
     if case == "edited":
         assert jrep["rows_excluded_overflow"] == 2
-        assert all(r["n_tested"] == n_rows - 2 for r in jrep["runs"])
+        assert all(r["n_tested"] == min(int(rows), n_rows) - 2
+                   for r in jrep["runs"])
     assert jrep["ok"] == (case != "failing")
 
 
