@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA device (phases 19, 21 and 25 start a rank on each visible
-card), the CUDA toolkit (nvcc) and the repository around this file;
+Needs one CUDA device (phases 19, 21, 25 and 26 start a rank on each
+visible card), the CUDA toolkit (nvcc) and the repository around this file;
 without a card it exits nonzero and prints no result.  It finishes in a
 few minutes, the kernel build included, and prints one line per phase
 with the seconds since start:
@@ -153,7 +153,18 @@ with the seconds since start:
     uninterrupted one, K1 once a step on every rank), and the W ranks'
     rows equal to the same W blocks (seeded p) run as one ensemble on
     one card in this process; the step, collect and checkpoint seconds
-    of an output and the machinery fraction printed.
+    of an output and the machinery fraction printed;
+26. timing programs: kmc_tpu_torch.scripts.bench through main() in lazy
+    mode at 512 replicas (k_align 64), a warm-up and 3 timed chunks of 10
+    steps: its stdout line parses with the JAX bench's keys plus device
+    and seconds, K1 once a step (warm-up included) at B = 64, K2 and K3
+    never, every K1 call bitwise equal to the plain version on its own
+    inputs; replica_scaling --counts 64,512 --chunk 10: rows with the JAX
+    keys, K1 once a step; weak_scaling's ranks (64 replicas a rank, a
+    warm-up and one timed chunk of 5 eager steps) at sizes 1, 2, 4 up to
+    the visible cards, each rank's block bitwise equal to the same
+    replicas run as one block on one card; with two cards or more,
+    run_distributed_bench (16 replicas a rank, 2 x 10 timed steps).
 
 Each phase of a path sets every launch count to 0 before it runs the path
 and reads the counts just after.  The last three lines are one JSON
@@ -230,6 +241,12 @@ SCRIPT_RO_REPLICAS, SCRIPT_RO_STEPS, SCRIPT_RO_CPU_REPLICAS = 256, 20, 4
 SCRIPT_RO_FULL_STEPS = 10 * 500   # a committed residual-overlap run's steps
 SCRIPT_ECS_ROWS = 22
 E2E_REPLICAS, E2E_OUT_EVERY, E2E_OUTPUTS = 256, 25, 4   # phase 25, a rank
+# phase 26: bench.py (lazy, its 512 replicas, the chunk cut from 50 steps),
+# replica_scaling, weak_scaling a rank, run_distributed_bench a rank
+BENCH_REPLICAS, BENCH_CHUNK, BENCH_REPEATS = 512, 10, 3
+RS_COUNTS, RS_CHUNK = "64,512", 10
+WS_PER_DEVICE, WS_CHUNK, WS_REPEATS = 64, 5, 1
+DB_REPLICAS, DB_STEPS, DB_REPEATS = 16, 10, 2
 RANK_TIMEOUT = 600     # seconds a spawn of ranks may take before it fails
 WORK = ""              # this run's temporary directory, made by main
 PASS_DEPTHS = (1, 2, 4, 8, 12)   # seed 1 runs align_depth passes at each
@@ -1924,6 +1941,187 @@ def distributed_e2e_phase(dev, k1, k2):
     return k1_n, k1_err
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the JAX package's timing programs, ported
+
+
+def captured_main(main, argv, **kw):
+    """A port program's ``main(argv)`` in this process: (rc, stdout,
+    stderr)."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv, **kw)
+    torch_sync()
+    return rc, out.getvalue(), err.getvalue()
+
+
+def want_label() -> str:
+    return CARD if DEVICE == "cuda" else "cpu"
+
+
+def bench_phase(cfg, k1, k2):
+    """bench.py in lazy mode at BENCH_REPLICAS with a shortened chunk:
+    (K1 launches, K1's max abs error on the run's own inputs)."""
+    from kmc_tpu_torch.parallel.ensemble import default_k_align
+    from kmc_tpu_torch.scripts import bench
+
+    k = min(default_k_align(BENCH_REPLICAS), BENCH_REPLICAS)
+    steps = (1 + BENCH_REPEATS) * BENCH_CHUNK
+    reset_counts(k1, k2)
+    with recording_k1() as captured:
+        rc, out, err = captured_main(
+            bench.main, ["--device", DEVICE], replicas=BENCH_REPLICAS,
+            chunk=BENCH_CHUNK, repeats=BENCH_REPEATS, mode="lazy")
+    k1_n, k1_reps = k1.launches, k1.replicas
+    others = k2.launches + k3_wrapper().launches
+    lines = out.strip().splitlines()
+    if rc != 0 or len(lines) != 1:
+        fail(f"bench.py: exit {rc}, {len(lines)} stdout lines: {out!r}")
+    rec = json.loads(lines[0])
+    if (set(rec) != {"metric", "value", "unit", "vs_baseline", "device",
+                     "seconds"} or rec["metric"] != "kmc_event_attempts_per_s"
+            or rec["unit"] != "events/s/chip"
+            or not rec["value"] > 0 or not rec["vs_baseline"]
+            or rec["device"] != want_label()):
+        fail(f"bench.py's line: {lines[0]}")
+    log("timing programs", f"bench.py lazy, {BENCH_REPLICAS} replicas, "
+        f"k_align {k}, a warm-up + {BENCH_REPEATS} x {BENCH_CHUNK} steps: "
+        f"{lines[0]}; stderr: " + " | ".join(err.strip().splitlines()))
+    if k1_n != steps or k1_reps != steps * k or others != 0:
+        fail(f"bench.py: K1 launched {k1_n} times for {k1_reps} replicas in "
+             f"{steps} lazy steps, K2 + K3 {others} times")
+    k1_err, passes = check_k1_calls(captured, cfg, steps, k, "bench")
+    log("timing programs", f"bench.py: K1 {k1_n} launches in {steps} steps "
+        f"(warm-up included) at B = {k}, K2 + K3 0; all {steps} K1 calls "
+        f"bitwise equal to the plain version; passes {pass_summary(passes)}")
+    return k1_n, k1_err
+
+
+def replica_scaling_phase(k1, k2):
+    """replica_scaling at RS_COUNTS with a shortened chunk; returns the K1
+    launches."""
+    from kmc_tpu_torch.parallel.ensemble import default_k_align
+    from kmc_tpu_torch.scripts import replica_scaling as rs
+
+    counts = [int(x) for x in RS_COUNTS.split(",")]
+    path = os.path.join(WORK, "replica_scaling.json")
+    reset_counts(k1, k2)
+    rc, out, err = captured_main(rs.main, [
+        "--counts", RS_COUNTS, "--chunk", str(RS_CHUNK), "--device", DEVICE,
+        "--out", path])
+    k1_n, k1_reps = k1.launches, k1.replicas
+    others = k2.launches + k3_wrapper().launches
+    rows = [json.loads(l) for l in out.strip().splitlines()]
+    with open(path) as f:
+        written = json.load(f)
+    keys = {"replicas", "ms_per_step_inscan", "replica_steps_per_s",
+            "events_per_s", "ms_per_dispatch_total", "ms_dispatch_overhead",
+            "device", "seconds"}
+    if (rc != 0 or rows != written or [r["replicas"] for r in rows] != counts
+            or any(set(r) != keys or r["device"] != want_label()
+                   for r in rows)):
+        fail(f"replica_scaling: exit {rc}, rows {out!r}")
+    # a count: a warm-up and 3 timed chunks (2 above 4,096 replicas), then
+    # 1 + DISPATCH_CALLS one-step chunks
+    per = [((2 + (r <= 4096) + 1) * RS_CHUNK + 1 + rs.DISPATCH_CALLS,
+            min(default_k_align(r), r)) for r in counts]
+    want_n = sum(n for n, _ in per)
+    want_reps = sum(n * k for n, k in per)
+    if k1_n != want_n or k1_reps != want_reps or others != 0:
+        fail(f"replica_scaling: K1 launched {k1_n} times for {k1_reps} "
+             f"replicas ({want_n} for {want_reps} expected), K2 + K3 "
+             f"{others}")
+    for r in rows:
+        log("timing programs", f"replica_scaling: {json.dumps(r)}")
+    log("timing programs", "replica_scaling: " + " | ".join(
+        err.strip().splitlines()) + f"; K1 {k1_n} launches, once a step")
+    return k1_n
+
+
+def weak_scaling_phase(cfg, dev):
+    """weak_scaling's ranks at sizes up to the visible cards (size 1 alone
+    on one card): each rank's block bitwise equal to the same replicas run
+    as one block on this process's card."""
+    import numpy as np
+    import torch
+    from kmc_tpu_torch.parallel.ensemble import (init_ensemble,
+                                                 make_ensemble_chunk)
+    from kmc_tpu_torch.scripts import weak_scaling as ws
+    from kmc_tpu_torch.scripts.validate_vs_reference import state_arrays
+    from kmc_tpu_torch.state import take_replicas
+
+    w = torch.cuda.device_count()
+    sizes = [n for n in ws.SIZES if n <= w]
+    work = os.path.join(WORK, "weak")
+    torch.cuda.empty_cache()
+    err = io.StringIO()
+    t = time.perf_counter()
+    rows = ws.run_sizes(sizes, WS_PER_DEVICE, WS_CHUNK, WS_REPEATS, DEVICE,
+                        cfg=cfg, work_dir=work, save_state=True, log=err)
+    sec = time.perf_counter() - t
+    run = make_ensemble_chunk(cfg, WS_CHUNK, device=dev)
+    for n in sizes:
+        whole = init_ensemble(cfg, WS_PER_DEVICE * n, seed=0, device=dev)
+        for _ in range(1 + WS_REPEATS):
+            whole, _ = run(whole)
+        for p in range(n):
+            want = state_arrays(take_replicas(whole, torch.arange(
+                p * WS_PER_DEVICE, (p + 1) * WS_PER_DEVICE, device=dev)))
+            with np.load(os.path.join(work, f"n{n}", f"rank{p}.npz")) as z:
+                bad = [k for k in want if k not in z.files
+                       or z[k].dtype != want[k].dtype
+                       or not np.array_equal(z[k], want[k])]
+            if bad:
+                fail(f"weak_scaling: size {n} rank {p}: leaves {bad} differ "
+                     f"from the same replicas run as one block on one card")
+    log("timing programs", f"weak_scaling, {WS_PER_DEVICE} replicas a "
+        f"rank, a warm-up + {WS_REPEATS} x {WS_CHUNK} eager steps, sizes "
+        f"{sizes} ({'NCCL' if DEVICE == 'cuda' else 'gloo'} ranks, one card "
+        f"a rank): {sec:.2f} s with the ranks' start; every rank's block "
+        f"bitwise equal to the same replicas run as one block on one card; "
+        + json.dumps(rows) + "; " + " | ".join(err.getvalue().splitlines()))
+
+
+def distributed_bench_phase():
+    """run_distributed_bench on one rank, then two (two cards or more)."""
+    from kmc_tpu_torch.scripts import run_distributed_bench as db
+
+    path = os.path.join(WORK, "distributed_bench.json")
+    rc, out, _ = captured_main(db.main, [
+        "--replicas-per-host", str(DB_REPLICAS), "--steps", str(DB_STEPS),
+        "--repeats", str(DB_REPEATS), "--device", DEVICE, "--out", path])
+    with open(path) as f:
+        rep = json.load(f)
+    keys = {"caveat", "one_process", "two_process", "two_vs_one_total_rate",
+            "real_slice_recipe", "device", "seconds"}
+    if (rc != 0 or json.loads(out) != rep or set(rep) != keys
+            or (rep["one_process"]["nproc"], rep["two_process"]["nproc"])
+            != (1, 2) or rep["device"] != want_label()):
+        fail(f"run_distributed_bench: exit {rc}, report {out!r}")
+    log("timing programs", f"run_distributed_bench, {DB_REPLICAS} replicas "
+        f"a rank, {DB_REPEATS} x {DB_STEPS} timed steps: two vs one "
+        f"{rep['two_vs_one_total_rate']:.4f}; one {json.dumps(rep['one_process'])}"
+        f"; two {json.dumps(rep['two_process'])}")
+
+
+def timing_programs_phase(dev, k1, k2):
+    """Phase 26: the ported timing programs; returns bench.py's K1
+    launches, replica_scaling's, and K1's max abs error on bench.py's own
+    inputs."""
+    import torch
+    from kmc_tpu_torch import SimConfig
+
+    cfg = SimConfig()
+    bench_n, bench_err = bench_phase(cfg, k1, k2)
+    rs_n = replica_scaling_phase(k1, k2)
+    weak_scaling_phase(cfg, dev)
+    if torch.cuda.device_count() >= 2:
+        distributed_bench_phase()
+    else:
+        log("timing programs", "one card: run_distributed_bench needs two")
+    return bench_n, rs_n, bench_err
+
+
 def main() -> int:
     import torch
 
@@ -2239,6 +2437,10 @@ def main() -> int:
     # ---- 25. the production loop with per-rank shards ----
     e2e_launches, e2e_err = distributed_e2e_phase(dev, k1, k2)
 
+    # ---- 26. the timing programs ----
+    bench_launches, rs_launches, bench_err = timing_programs_phase(dev, k1,
+                                                                   k2)
+
     print(json.dumps({"kernels": [{
         "name": "align_batched",
         "route": "cuda",
@@ -2248,8 +2450,10 @@ def main() -> int:
         "launches_by_path": {"lazy main path": launches,
                              "validation driver": val_launches,
                              "measure_residual_overlap": ro_launches,
-                             "distributed e2e": e2e_launches},
-        "max_abs_err": max(max_err, val_err, ro_err, e2e_err),
+                             "distributed e2e": e2e_launches,
+                             "bench": bench_launches,
+                             "replica_scaling": rs_launches},
+        "max_abs_err": max(max_err, val_err, ro_err, e2e_err, bench_err),
         "ms": k1_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,

@@ -137,7 +137,11 @@ def test_port_imports_no_jax():
             "kmc_tpu_torch.scripts.validate_lattice_physics, "
             "kmc_tpu_torch.scripts.measure_residual_overlap, "
             "kmc_tpu_torch.scripts.distributed_worker, "
-            "kmc_tpu_torch.scripts.run_distributed_e2e; "
+            "kmc_tpu_torch.scripts.run_distributed_e2e, "
+            "kmc_tpu_torch.scripts.bench, "
+            "kmc_tpu_torch.scripts.replica_scaling, "
+            "kmc_tpu_torch.scripts.weak_scaling, "
+            "kmc_tpu_torch.scripts.run_distributed_bench; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'kmc_tpu' or "
             "m.startswith('kmc_tpu.')]; print(bad); "

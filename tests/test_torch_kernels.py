@@ -608,3 +608,54 @@ def test_distributed_e2e_on_card_matches_cpu(tmp_path):
                 assert np.abs(zc[k] - zp[k]).max() <= POS_TOL, fields[k]
             else:
                 np.testing.assert_array_equal(zc[k], zp[k], k)
+
+
+@pytest.mark.gpu
+def test_bench_on_card_matches_cpu(monkeypatch):
+    """bench.py's run (SMALL, 4 lazy replicas, a warm-up and one timed
+    chunk of 5 steps) launches K1 once a step on the card and leaves the
+    CPU's state: integer fields bitwise, poses within POS_TOL."""
+    from kmc_tpu_torch.scripts import bench
+
+    dev = _cuda()
+    monkeypatch.setattr(bench, "SimConfig", lambda: SMALL)
+    launches = align_batched.align_core_batched.launches
+    steps, _, st = bench.measure(4, 5, 1, "lazy", dev)
+    assert align_batched.align_core_batched.launches == launches + 10
+    assert steps == 20
+    _, _, want = bench.measure(4, 5, 1, "lazy", torch.device("cpu"))
+    for f in want._fields:
+        got = getattr(st, f).cpu()
+        if f in ("a_xy", "a_psi", "b_center", "b_quat"):
+            assert float((got - getattr(want, f)).abs().max()) <= POS_TOL, f
+        else:
+            assert torch.equal(got, getattr(want, f)), f
+
+
+@pytest.mark.gpu
+def test_weak_scaling_on_card_matches_cpu(tmp_path):
+    """weak_scaling's one-rank size on the card (SMALL, 4 replicas, a
+    warm-up and one timed chunk of 5 eager steps, NCCL group of one)
+    leaves the block of a gloo rank on the CPU: integer leaves bitwise,
+    poses within POS_TOL."""
+    import numpy as np
+
+    from kmc_tpu_torch.scripts import weak_scaling
+    from kmc_tpu_torch.state import SimState
+
+    _cuda()
+    for where in ("cuda", "cpu"):
+        rows = weak_scaling.run_sizes([1], 4, 5, 1, where, cfg=SMALL,
+                                      work_dir=str(tmp_path / where),
+                                      save_state=True)
+        assert rows[0]["replicas"] == 4 and rows[0]["efficiency"] == 1.0
+    poses = {f"leaf{SimState._fields.index(f)}"
+             for f in ("a_xy", "a_psi", "b_center", "b_quat")}
+    with np.load(tmp_path / "cuda" / "n1" / "rank0.npz") as zc, \
+            np.load(tmp_path / "cpu" / "n1" / "rank0.npz") as zp:
+        assert sorted(zc.files) == sorted(zp.files)
+        for k in zp.files:
+            if k in poses:
+                assert np.abs(zc[k] - zp[k]).max() <= POS_TOL, k
+            else:
+                np.testing.assert_array_equal(zc[k], zp[k], k)
