@@ -39,9 +39,8 @@ import os
 import sys
 import time
 
-import torch
-
 from kmc_tpu_torch.config import SimConfig
+from kmc_tpu_torch.utils.profiling import sync
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -60,11 +59,6 @@ def settings() -> dict:
     }
 
 
-def _sync(dev) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def measure(replicas: int, chunk: int, repeats: int, mode: str, device,
             mark=lambda what: None):
     """(replica-steps timed, seconds, final state) of the bench's run on
@@ -76,7 +70,7 @@ def measure(replicas: int, chunk: int, repeats: int, mode: str, device,
 
     cfg = SimConfig()  # reference scale: 150 receptors + 50 ligands
     state = init_ensemble(cfg, replicas, seed=0, device=device)
-    _sync(device)
+    sync(device)
     mark("init_ensemble done")
     # the JAX bench donates the state's buffers to each chunk; the port's
     # chunk is eager PyTorch and frees a step's inputs as it goes
@@ -88,13 +82,13 @@ def measure(replicas: int, chunk: int, repeats: int, mode: str, device,
         run = make_ensemble_chunk(cfg, chunk, device=device)
 
     state, _ = run(state)          # warm-up; the kernels build here
-    _sync(device)
+    sync(device)
     mark("warmup chunk done")
 
     t0 = time.perf_counter()
     for _ in range(repeats):
         state, _ = run(state)
-    _sync(device)
+    sync(device)
     dt = time.perf_counter() - t0
     return repeats * chunk * replicas, dt, state
 

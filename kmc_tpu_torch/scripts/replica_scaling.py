@@ -44,13 +44,9 @@ import time
 import torch
 
 from kmc_tpu_torch.config import SimConfig
+from kmc_tpu_torch.utils.profiling import events_per_step, sync
 
 DISPATCH_CALLS = 20
-
-
-def _sync(dev) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def measure(cfg: SimConfig, r: int, chunk_steps: int, device,
@@ -59,21 +55,20 @@ def measure(cfg: SimConfig, r: int, chunk_steps: int, device,
     from kmc_tpu_torch.parallel.ensemble import (default_k_align,
                                                  init_ensemble,
                                                  make_lazy_ensemble_chunk)
-    from kmc_tpu_torch.utils.profiling import events_per_step
 
     start = time.perf_counter()
     k = default_k_align(r)
     state = init_ensemble(cfg, r, seed=0, device=device)
-    _sync(device)
+    sync(device)
     chunk = make_lazy_ensemble_chunk(cfg, chunk_steps, k_align=k,
                                      device=device)
     state, _ = chunk(state)
-    _sync(device)                                   # build + warm
+    sync(device)                                   # build + warm
     reps = 3 if r <= 4096 else 2
     t0 = time.perf_counter()
     for _ in range(reps):
         state, _ = chunk(state)
-    _sync(device)
+    sync(device)
     dt = (time.perf_counter() - t0) / reps
     ms_step = dt / chunk_steps * 1000.0
 
@@ -81,11 +76,11 @@ def measure(cfg: SimConfig, r: int, chunk_steps: int, device,
     # subtract the in-chunk step time
     one = make_lazy_ensemble_chunk(cfg, 1, k_align=k, device=device)
     state, _ = one(state)
-    _sync(device)
+    sync(device)
     t0 = time.perf_counter()
     for _ in range(DISPATCH_CALLS):
         state, _ = one(state)
-        _sync(device)
+        sync(device)
     d1 = (time.perf_counter() - t0) / DISPATCH_CALLS * 1000.0
     return {
         "replicas": r,
@@ -113,8 +108,6 @@ def main(argv=None) -> int:
                     help="cuda raises without a card")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)         # no card: raise here
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
     label = device_label(dev)
     print(f"# device: {label}", file=sys.stderr, flush=True)
 

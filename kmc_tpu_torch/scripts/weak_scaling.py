@@ -61,6 +61,7 @@ def rank_run(spec: str) -> None:
                                                  make_ensemble_chunk)
     from kmc_tpu_torch.parallel.mesh import rank_device, world
     from kmc_tpu_torch.scripts.validate_vs_reference import state_arrays
+    from kmc_tpu_torch.utils.profiling import sync
 
     s = json.loads(spec)
     n = int(os.environ["KMC_NUM_PROCESSES"])
@@ -78,13 +79,11 @@ def rank_run(spec: str) -> None:
         state, _ = chunk(state)                   # warm; kernels build
         # every rank starts its window after the others have warmed up
         distributed.all_hosts_mean(torch.ones(1, device=dev))
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        sync(dev)
         t0 = time.perf_counter()
         for _ in range(s["repeats"]):
             state, _ = chunk(state)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        sync(dev)
         dt = time.perf_counter() - t0
         with open(os.path.join(s["out_dir"], f"rank{rank}.json"), "w") as f:
             json.dump({"rank": rank, "size": size, "seconds": dt}, f)

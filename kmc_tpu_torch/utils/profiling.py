@@ -73,6 +73,14 @@ def device_trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
+def sync(device) -> None:
+    """Wait until ``device`` has finished the work issued to it (nothing
+    to wait for on the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def _cuda_devices(out, found: set) -> set:
     """The CUDA devices of every tensor in ``out`` (tensors, tuples,
     NamedTuples, lists and dicts, nested)."""
