@@ -164,7 +164,19 @@ with the seconds since start:
     warm-up and one timed chunk of 5 eager steps) at sizes 1, 2, 4 up to
     the visible cards, each rank's block bitwise equal to the same
     replicas run as one block on one card; with two cards or more,
-    run_distributed_bench (16 replicas a rank, 2 x 10 timed steps).
+    run_distributed_bench (16 replicas a rank, 2 x 10 timed steps);
+27. flux diagnostics: kmc_tpu_torch.scripts.receptors_probe ours through
+    main() at its 256 replicas, seed 7, one chunk cut to 20 steps, then
+    report --ref-json RECEPTORS_PROBE_r05.json on its npz: K1 once a step
+    at B = 256, K2 and K3 never, every K1 call bitwise equal to the plain
+    version on its own inputs, the npz with the JAX keys (steps and every
+    diag key, a count a replica), the report with every JAX key and the
+    card's nvidia-smi line as its device; chan_flux run_ours from 8
+    preformed complexes at our_config(10.0), 32 replicas, 2 outputs of 10
+    steps: K1 20 launches at B = 32, every call bitwise; both at 4
+    replicas on the card and the CPU (diag series and integer fields
+    bitwise, positions within 4 ulp of |x| or 1e-4 A); the ms of a step
+    at each width, with the minutes of the committed runs' lengths.
 
 Each phase of a path sets every launch count to 0 before it runs the path
 and reads the counts just after.  The last three lines are one JSON
@@ -247,6 +259,21 @@ BENCH_REPLICAS, BENCH_CHUNK, BENCH_REPEATS = 512, 10, 3
 RS_COUNTS, RS_CHUNK = "64,512", 10
 WS_PER_DEVICE, WS_CHUNK, WS_REPEATS = 64, 5, 1
 DB_REPLICAS, DB_STEPS, DB_REPEATS = 16, 10, 2
+# phase 27: receptors_probe ours (its 256 replicas, one chunk cut to 20
+# steps), chan_flux run_ours (32 replicas, 8 preformed complexes at boost
+# 10, 2 outputs of 10 steps), each also at 4 replicas on the card and the
+# CPU; the step timed at each width for the committed runs' lengths
+PROBE_REPLICAS, PROBE_STEPS, PROBE_SEED, PROBE_FULL_STEPS = 256, 20, 7, 20_000
+FLUX_REPLICAS, FLUX_OUTPUTS, FLUX_OUT_EVERY = 32, 2, 10
+FLUX_BOOST, FLUX_COMPLEXES, FLUX_FULL_STEPS = 10.0, 8, 26_000
+FLUX_CPU_REPLICAS = 4
+DIAG_KEYS = {"elig_trans", "acc_trans", "elig_mono", "acc_mono", "elig_cis",
+             "acc_cis", "dis_trans", "residual_overlap"}
+PROBE_REPORT_KEYS = {          # the JAX script's report
+    "design", "ref_runs", "ref_steps", "ref_rate_per_step", "ref_rate_se",
+    "ref_rates", "ref_tail75_rate_per_step", "our_replicas", "our_steps",
+    "our_rate_per_step", "our_rate_se", "ratio_ours_over_ref", "ratio_se",
+    "ratio_ci95", "verdict_ok"}
 RANK_TIMEOUT = 600     # seconds a spawn of ranks may take before it fails
 WORK = ""              # this run's temporary directory, made by main
 PASS_DEPTHS = (1, 2, 4, 8, 12)   # seed 1 runs align_depth passes at each
@@ -2122,6 +2149,197 @@ def timing_programs_phase(dev, k1, k2):
     return bench_n, rs_n, bench_err
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the JAX package's flux diagnostics, ported
+
+
+def card_vs_cpu_diag(cfg, init, seed, outputs, out_every, dev, what):
+    """``chan_flux.diag_series`` at FLUX_CPU_REPLICAS replicas on the card
+    and on the CPU from the same start: every diag count and the integer
+    fields of the final state bitwise, positions within max(POS_ULPS ulp
+    of |x|, POS_TOL), angles and quaternions within POS_TOL.  Returns a
+    log line."""
+    import torch
+    from kmc_tpu_torch.scripts import chan_flux as cf
+
+    runs = [cf.diag_series(cf.start_state(cfg, FLUX_CPU_REPLICAS, seed,
+                                          init, where), cfg, outputs,
+                           out_every, where) for where in (dev, "cpu")]
+    (card, st), (cpu, want) = runs
+    for i, (c, p) in enumerate(zip(card, cpu)):
+        bad = [k for k in p if not (c[k] == p[k]).all()]
+        if sorted(c) != sorted(p) or bad:
+            fail(f"{what} card vs CPU, output {i + 1}: diag {bad} differ")
+    worst, pos_d, pos_share = 0.0, 0.0, 0.0
+    for f in want._fields:
+        got, ref = getattr(st, f).cpu(), getattr(want, f)
+        if f not in POSE_FIELDS:
+            if not torch.equal(got, ref):
+                fail(f"{what}: card vs CPU, {f} differs")
+            continue
+        d = (got - ref).abs()
+        if f in ("a_xy", "b_center"):
+            ulp = torch.nextafter(ref.abs(), torch.full_like(ref, 1e9)) \
+                - ref.abs()
+            share = float((d / torch.clamp(POS_ULPS * ulp, min=POS_TOL))
+                          .max())
+            pos_d, pos_share = max(pos_d, float(d.max())), max(pos_share,
+                                                               share)
+            if share > 1.0:
+                fail(f"{what}: card vs CPU, {f} {float(d.max()):.3g} A "
+                     f"apart, over max({POS_ULPS} ulp of |x|, {POS_TOL} A)")
+        else:
+            worst = max(worst, float(d.max()))
+            if worst > POS_TOL:
+                fail(f"{what}: card vs CPU, {f} {worst:.3g} apart")
+    totals = {k: int(cpu[-1][k].sum()) for k in sorted(cpu[-1])}
+    return (f"{what} card vs CPU at {FLUX_CPU_REPLICAS} replicas, "
+            f"{outputs} x {out_every} steps: diag series bitwise (totals "
+            f"{totals}), topology/flags/keys bitwise, positions max abs "
+            f"diff {pos_d:.3g} A, at most {pos_share:.2f} of the limit "
+            f"max({POS_ULPS} ulp of |x|, {POS_TOL} A); a_psi and b_quat max "
+            f"abs diff {worst:.3g}")
+
+
+def step_ms(cfg, init, replicas, seed, dev):
+    """CUDA-event ms of one batched diagnostic step at ``replicas``."""
+    from kmc_tpu_torch.engine.step import step_fn_diag
+    from kmc_tpu_torch.scripts import chan_flux as cf
+
+    holder = [cf.start_state(cfg, replicas, seed, init, dev)]
+    return cuda_time_ms(lambda: holder.append(step_fn_diag(
+        holder.pop(), cfg, dev, batched=True)[0]), iters=TIMED,
+        warmup=WARMUP)
+
+
+def probe_phase(dev, k1, k2):
+    """receptors_probe ``ours`` through main() at PROBE_REPLICAS for one
+    chunk of PROBE_STEPS, then ``report --ref-json``: (K1 launches, K1's
+    max abs error on the run's own inputs)."""
+    import numpy as np
+    from kmc_tpu_torch.scripts import receptors_probe as rp
+
+    work = os.path.join(WORK, "rprobe")
+    argv = ["ours", "--workdir", work, "--replicas", str(PROBE_REPLICAS),
+            "--seed", str(PROBE_SEED), "--steps", str(PROBE_STEPS),
+            "--device", DEVICE]
+    chunk, rp.OUT_EVERY = rp.OUT_EVERY, PROBE_STEPS
+    try:
+        cfg = rp.probe_config()
+        reset_counts(k1, k2)
+        t = time.perf_counter()
+        with recording_k1() as captured:
+            rc, out, err = captured_main(rp.main, argv)
+        sec = time.perf_counter() - t
+    finally:
+        rp.OUT_EVERY = chunk
+    k1_n, k1_reps = k1.launches, k1.replicas
+    others = k2.launches + k3_wrapper().launches
+    log("flux diagnostics", f"receptors_probe {' '.join(argv[3:])}: rc "
+        f"{rc}, {sec:.2f} s; {out.strip()}; stderr: "
+        + " | ".join(err.strip().splitlines()) + f"; K1 launches {k1_n} "
+        f"aligning {k1_reps} replicas, K2 + K3 {others}")
+    if (rc != 0 or k1_n != PROBE_STEPS
+            or k1_reps != PROBE_STEPS * PROBE_REPLICAS or others != 0):
+        fail(f"receptors_probe ours: exit {rc}, K1 launched {k1_n} times "
+             f"for {k1_reps} replicas in {PROBE_STEPS} steps, K2 + K3 "
+             f"{others} times")
+    k1_err, passes = check_k1_calls(captured, cfg, PROBE_STEPS,
+                                    PROBE_REPLICAS, "receptors_probe")
+    log("flux diagnostics", f"receptors_probe: all {PROBE_STEPS} K1 calls "
+        f"(B = {PROBE_REPLICAS}) bitwise equal to the plain version; passes "
+        f"{pass_summary(passes)}")
+    with np.load(os.path.join(work, rp.NPZ)) as z:
+        files = set(z.files)
+        counts = {k: z[k] for k in DIAG_KEYS & files}
+        steps, label = int(z["steps"]), str(z["device"])
+    if (files != DIAG_KEYS | {"steps", "device", "seconds"}
+            or steps != PROBE_STEPS or label != want_label()
+            or any(v.shape != (PROBE_REPLICAS,) for v in counts.values())):
+        fail(f"receptors_probe's npz: keys {sorted(files)}, steps {steps}, "
+             f"device {label!r}, shapes "
+             f"{ {k: v.shape for k, v in counts.items()} }")
+    rc, rep = script_report(rp, [
+        "report", "--workdir", work,
+        "--ref-json", os.path.join(REPO, "RECEPTORS_PROBE_r05.json")])
+    missing = PROBE_REPORT_KEYS - set(rep)
+    if (rc != 0 or missing or rep["device"] != want_label()
+            or rep["our_steps"] != PROBE_STEPS
+            or rep["our_replicas"] != PROBE_REPLICAS):
+        fail(f"receptors_probe report: exit {rc}, missing keys {missing}, "
+             f"device {rep.get('device')!r}, our_steps "
+             f"{rep.get('our_steps')}, our_replicas {rep.get('our_replicas')}")
+    log("flux diagnostics", "receptors_probe report --ref-json "
+        "RECEPTORS_PROBE_r05.json: " + json.dumps(rep))
+    return k1_n, k1_err
+
+
+def chan_flux_phase(dev, k1, k2):
+    """chan_flux run_ours from FLUX_COMPLEXES preformed complexes at
+    FLUX_REPLICAS: (K1 launches, K1's max abs error on its own inputs)."""
+    from kmc_tpu_torch.scripts import chan_flux as cf
+    from kmc_tpu_torch.scripts import mini_golden as mg
+
+    cfg = mg.our_config(FLUX_BOOST)
+    pre = cf.build_preformed(cfg, FLUX_COMPLEXES)
+    steps = FLUX_OUTPUTS * FLUX_OUT_EVERY
+    reset_counts(k1, k2)
+    t = time.perf_counter()
+    with recording_k1() as captured:
+        series = cf.run_ours(cfg, FLUX_REPLICAS, FLUX_OUTPUTS,
+                             FLUX_OUT_EVERY, 0, init_state=pre, device=dev)
+    torch_sync()
+    sec = time.perf_counter() - t
+    k1_n, k1_reps = k1.launches, k1.replicas
+    others = k2.launches + k3_wrapper().launches
+    if (len(series) != FLUX_OUTPUTS or k1_n != steps
+            or k1_reps != steps * FLUX_REPLICAS or others != 0
+            or any(set(o) != DIAG_KEYS or any(
+                v.shape != (FLUX_REPLICAS,) for v in o.values())
+                for o in series)):
+        fail(f"chan_flux run_ours: {len(series)} outputs, K1 launched "
+             f"{k1_n} times for {k1_reps} replicas in {steps} steps, K2 + "
+             f"K3 {others} times")
+    k1_err, passes = check_k1_calls(captured, cfg, steps, FLUX_REPLICAS,
+                                    "chan_flux")
+    totals = {k: int(v.sum()) for k, v in sorted(series[-1].items())}
+    log("flux diagnostics", f"chan_flux run_ours at boost {FLUX_BOOST}, "
+        f"{FLUX_COMPLEXES} preformed complexes, {FLUX_REPLICAS} replicas, "
+        f"{FLUX_OUTPUTS} x {FLUX_OUT_EVERY} steps: {sec:.2f} s, totals "
+        f"{totals}; K1 {k1_n} launches, K2 + K3 0; all {steps} K1 calls "
+        f"(B = {FLUX_REPLICAS}) bitwise equal to the plain version; passes "
+        f"{pass_summary(passes)}")
+    return k1_n, k1_err
+
+
+def flux_phase(dev, k1, k2):
+    """Phase 27: the port's receptors_probe and chan_flux on the card.
+    Returns the K1 launches of each and K1's max abs error on their own
+    inputs against the plain version."""
+    from kmc_tpu_torch.scripts import chan_flux as cf
+    from kmc_tpu_torch.scripts import mini_golden as mg
+    from kmc_tpu_torch.scripts import receptors_probe as rp
+
+    probe_n, probe_err = probe_phase(dev, k1, k2)
+    flux_n, flux_err = chan_flux_phase(dev, k1, k2)
+    pcfg = rp.probe_config()
+    fcfg = mg.our_config(FLUX_BOOST)
+    pre = cf.build_preformed(fcfg, FLUX_COMPLEXES)
+    log("flux diagnostics", card_vs_cpu_diag(
+        pcfg, None, PROBE_SEED, 1, PROBE_STEPS, dev, "receptors_probe"))
+    log("flux diagnostics", card_vs_cpu_diag(
+        fcfg, pre, 0, FLUX_OUTPUTS, FLUX_OUT_EVERY, dev, "chan_flux"))
+    for what, cfg, init, reps, seed, full in (
+            ("receptors_probe", pcfg, None, PROBE_REPLICAS, PROBE_SEED,
+             PROBE_FULL_STEPS),
+            ("chan_flux", fcfg, pre, FLUX_REPLICAS, 0, FLUX_FULL_STEPS)):
+        ms = step_ms(cfg, init, reps, seed, dev)
+        log("flux diagnostics", f"{what} step at {reps} replicas: {ms:.3f} "
+            f"ms (CUDA events, {TIMED} steps after {WARMUP} warm-ups) -> "
+            f"{full * ms / 60e3:.2f} GPU-minutes for {full:,} steps")
+    return probe_n, flux_n, max(probe_err, flux_err)
+
+
 def main() -> int:
     import torch
 
@@ -2441,6 +2659,9 @@ def main() -> int:
     bench_launches, rs_launches, bench_err = timing_programs_phase(dev, k1,
                                                                    k2)
 
+    # ---- 27. the flux diagnostics ----
+    probe_launches, flux_launches, flux_err = flux_phase(dev, k1, k2)
+
     print(json.dumps({"kernels": [{
         "name": "align_batched",
         "route": "cuda",
@@ -2452,8 +2673,11 @@ def main() -> int:
                              "measure_residual_overlap": ro_launches,
                              "distributed e2e": e2e_launches,
                              "bench": bench_launches,
-                             "replica_scaling": rs_launches},
-        "max_abs_err": max(max_err, val_err, ro_err, e2e_err, bench_err),
+                             "replica_scaling": rs_launches,
+                             "receptors_probe": probe_launches,
+                             "chan_flux": flux_launches},
+        "max_abs_err": max(max_err, val_err, ro_err, e2e_err, bench_err,
+                           flux_err),
         "ms": k1_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,

@@ -141,7 +141,10 @@ def test_port_imports_no_jax():
             "kmc_tpu_torch.scripts.bench, "
             "kmc_tpu_torch.scripts.replica_scaling, "
             "kmc_tpu_torch.scripts.weak_scaling, "
-            "kmc_tpu_torch.scripts.run_distributed_bench; "
+            "kmc_tpu_torch.scripts.run_distributed_bench, "
+            "kmc_tpu_torch.scripts.mini_golden, "
+            "kmc_tpu_torch.scripts.receptors_probe, "
+            "kmc_tpu_torch.scripts.chan_flux; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'kmc_tpu' or "
             "m.startswith('kmc_tpu.')]; print(bad); "

@@ -659,3 +659,52 @@ def test_weak_scaling_on_card_matches_cpu(tmp_path):
                 assert np.abs(zc[k] - zp[k]).max() <= POS_TOL, k
             else:
                 np.testing.assert_array_equal(zc[k], zp[k], k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("script", ["receptors_probe", "chan_flux"])
+def test_flux_diagnostics_on_card_matches_cpu(script):
+    """The flux diagnostics' ensembles at their own configurations, with
+    the fused align (K1 on the card), 4 replicas, 10 steps: the probe's
+    random start at probe_config(), and chan_flux's 8 preformed complexes
+    at our_config(10.0).  K1 launches once a step; the diag series and
+    the integer fields of the final state equal the CPU's; positions
+    within max(4 ulp of |x|, POS_TOL) (one ulp is 1.2e-4 A at |x| > 1024
+    A, and the mini box reaches 1,490 A), angles and quaternions within
+    POS_TOL."""
+    import numpy as np
+
+    from kmc_tpu_torch.scripts import chan_flux as cf
+    from kmc_tpu_torch.scripts import mini_golden as mg
+    from kmc_tpu_torch.scripts import receptors_probe as rp
+
+    dev = _cuda()
+    if script == "receptors_probe":
+        cfg, init = rp.probe_config(), None
+    else:
+        cfg = mg.our_config(10.0)
+        init = cf.build_preformed(cfg, 8)
+    assert cfg.fused_align
+    runs = {}
+    for where in (dev, torch.device("cpu")):
+        launches = align_batched.align_core_batched.launches
+        state = cf.start_state(cfg, 4, 7, init, where)
+        runs[where.type] = cf.diag_series(state, cfg, 2, 5, where)
+        if where.type == "cuda":
+            assert align_batched.align_core_batched.launches == launches + 10
+    (card, st), (cpu, want) = runs["cuda"], runs["cpu"]
+    for i, (c, p) in enumerate(zip(card, cpu)):
+        assert sorted(c) == sorted(p)
+        for k in p:
+            np.testing.assert_array_equal(c[k], p[k], f"{k} output {i}")
+    for f in want._fields:
+        got, ref = getattr(st, f).cpu(), getattr(want, f)
+        if f in ("a_xy", "b_center"):
+            ulp = torch.nextafter(ref.abs(), torch.full_like(ref, 1e9)) \
+                - ref.abs()
+            assert bool(((got - ref).abs()
+                         <= torch.clamp(4 * ulp, min=POS_TOL)).all()), f
+        elif f in ("a_psi", "b_quat"):
+            assert float((got - ref).abs().max()) <= POS_TOL, f
+        else:
+            assert torch.equal(got, ref), f
