@@ -52,7 +52,6 @@ CHANNELS = ["elig_trans", "elig_mono", "elig_cis", "acc_trans", "acc_mono",
             "acc_cis", "dis_trans"]
 REF_EXTRA = ["re_up", "re_down", "dis_mono", "dis_cis"]
 QUARTER_CHANNELS = ["elig_cis", "acc_cis", "elig_mono", "acc_mono"]
-REF_SOURCE = "main.cpp"
 
 
 # ---------------------------------------------------------------------------
@@ -216,45 +215,31 @@ def _ref_chan_dat(args):
             for r in range(args.ref_runs)]
 
 
-def _chan_dat_report(args, refs, ours, n_out):
-    """The JAX script's report from the runs' chan.dat rows."""
-    report = {"config": {"steps": args.steps, "boost": args.boost,
-                         "replicas": args.replicas,
-                         "ref_runs": args.ref_runs},
-              "channels": {}}
-    for c in CHANNELS:
-        ref_final = [float(r[n_out - 1, REF_COLS.index(c)]) for r in refs]
-        our_final = ours[n_out - 1][c].astype(float)
-        report["channels"][c] = {
-            "ref_runs_final": ref_final,
-            "ours_mean_final": float(our_final.mean()),
-            "ours_std_final": float(our_final.std()),
-            "ours_min": float(our_final.min()),
-            "ours_max": float(our_final.max()),
-            "ratio_mean_vs_refmean": (
-                float(our_final.mean() / np.mean(ref_final))
-                if np.mean(ref_final) else None),
-        }
+def _quarter_points(n):
+    return [n // 4, n // 2, 3 * n // 4, n - 1]
+
+
+def _ref_from_chan_dat(refs, n_out):
+    """The reference side in the committed reports' layout, from the runs'
+    chan.dat rows cut to ``n_out`` outputs."""
+    col = REF_COLS.index
+    qs = _quarter_points(n_out)
+    channels = {c: {"ref_runs_final": [float(r[n_out - 1, col(c)])
+                                       for r in refs]} for c in CHANNELS}
     # reference-only reclassification fluxes for context
-    for c in REF_EXTRA:
-        report["channels"].setdefault("ref_extra", {})[c] = [
-            float(r[n_out - 1, REF_COLS.index(c)]) for r in refs]
-    # time series at quarter points for trend reading
-    qs = [n_out // 4, n_out // 2, 3 * n_out // 4, n_out - 1]
-    report["quarters"] = {}
-    for c in QUARTER_CHANNELS:
-        report["quarters"][c] = {
-            "ref_mean": [float(np.mean([r[q, REF_COLS.index(c)]
-                                        for r in refs])) for q in qs],
-            "ours_mean": [float(ours[q][c].mean()) for q in qs],
-        }
-    return report, qs
+    channels["ref_extra"] = {c: [float(r[n_out - 1, col(c)]) for r in refs]
+                             for c in REF_EXTRA}
+    return {"config": {"ref_runs": len(refs)}, "channels": channels,
+            "quarters": {c: {"ref_mean": [
+                float(np.mean([r[q, col(c)] for r in refs])) for q in qs]}
+                for c in QUARTER_CHANNELS}}
 
 
-def _ref_json_report(args, ref, ours, n_ref):
-    """The report against a committed one's reference side: the quarter
-    points of the reference's ``n_ref`` outputs; the port's values at the
-    points its run reached, null at the rest."""
+def _report(args, ref, ours, n_ref):
+    """The JAX script's report against ``ref`` (the reference side in the
+    committed reports' layout) at the quarter points of its ``n_ref``
+    outputs: the port's values where its run reached, null elsewhere; its
+    finals only if the run reached output ``n_ref``."""
     n_run = len(ours)
     done = n_run == n_ref
     report = {"config": {"steps": args.steps, "boost": args.boost,
@@ -275,7 +260,8 @@ def _ref_json_report(args, ref, ours, n_ref):
                 if done and np.mean(ref_final) else None),
         }
     report["channels"]["ref_extra"] = ref["channels"]["ref_extra"]
-    qs = [n_ref // 4, n_ref // 2, 3 * n_ref // 4, n_ref - 1]
+    # time series at quarter points for trend reading
+    qs = _quarter_points(n_ref)
     report["quarters"] = {
         c: {"ref_mean": ref["quarters"][c]["ref_mean"],
             "ours_mean": [float(ours[q][c].mean()) if q < n_run else None
@@ -309,7 +295,8 @@ def main(argv=None) -> int:
                          "the reference")
     ap.add_argument("--ref-json", default=None,
                     help="take the reference side from this committed "
-                         "report (CHAN_FLUX_*.json)")
+                         "report (CHAN_FLUX_*.json, run at the default "
+                         "--out-every 1000)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
 
@@ -336,24 +323,23 @@ def main(argv=None) -> int:
               f"{n_run}", file=sys.stderr)
     elif args.reuse_refs:
         refs = _ref_chan_dat(args)
-        n_run = min(r.shape[0] for r in refs)
+        n_ref = min(r.shape[0] for r in refs)
         if args.max_out:
-            n_run = min(n_run, args.max_out)
-        print(f"# reference: {len(refs)} runs x {n_run} outputs",
+            n_ref = min(n_ref, args.max_out)
+        n_run, ref = n_ref, _ref_from_chan_dat(refs, n_ref)
+        print(f"# reference: {len(refs)} runs x {n_ref} outputs",
               file=sys.stderr)
     else:
         raise FileNotFoundError(
-            f"running the reference compiles its C++ source ({REF_SOURCE}), "
+            "running the reference compiles its C++ source (main.cpp), "
             "which is not in this repository; pass --reuse-refs with "
             "runN/chan.dat files or --ref-json with a committed report")
 
     ours = run_ours(cfg, args.replicas, n_run, args.out_every, args.seed,
                     init_state=pre, device=dev)
+    report, qs = _report(args, ref, ours, n_ref)
     if args.ref_json:
-        report, qs = _ref_json_report(args, ref, ours, n_ref)
         report["ref_json"] = os.path.basename(args.ref_json)
-    else:
-        report, qs = _chan_dat_report(args, refs, ours, n_run)
     last = ours[-1]
     report.update({
         "ours_outputs": n_run,

@@ -54,7 +54,6 @@ NB = 1          # see the module docstring
 OUR_STEPS = 200_000
 OUT_EVERY = 5_000
 NPZ = "ours_elig.npz"
-REF_SOURCE = "main.cpp"
 
 
 def probe_config():
@@ -86,7 +85,7 @@ def run_probe(cfg, replicas: int, steps: int, seed: int, device,
 
 def cmd_refs(args):
     raise FileNotFoundError(
-        f"the refs stage compiles the C++ reference source ({REF_SOURCE}), "
+        "the refs stage compiles the C++ reference source (main.cpp), "
         "which is not in this repository; nothing was run")
 
 
