@@ -264,7 +264,7 @@ DB_REPLICAS, DB_STEPS, DB_REPEATS = 16, 10, 2
 # steps), chan_flux run_ours (32 replicas, 8 preformed complexes at boost
 # 10, 2 outputs of 10 steps), each also at 4 replicas on the card and the
 # CPU; the step timed at each width for the committed runs' lengths
-PROBE_REPLICAS, PROBE_STEPS, PROBE_SEED, PROBE_FULL_STEPS = 256, 20, 7, 20_000
+PROBE_REPLICAS, PROBE_STEPS, PROBE_SEED, PROBE_FULL_STEPS = 256, 20, 7, 40_000
 FLUX_REPLICAS, FLUX_OUTPUTS, FLUX_OUT_EVERY = 32, 2, 10
 FLUX_BOOST, FLUX_COMPLEXES, FLUX_FULL_STEPS = 10.0, 8, 26_000
 FLUX_CPU_REPLICAS = 4
